@@ -5,19 +5,28 @@
 
 Phases, each of which exits non-zero when it fails:
 
-1. build both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
-   in parallel) and print the card (nvidia-smi name, power limit);
-2. K1 (blocked-ACSR SpMV) against its plain version on the card at the
-   seven llama3-8b projection geometries, batch 4, density 0.25;
+1. build the four CUDA libraries (five kernels) from
+   ``src/repro_torch/csrc`` (one nvcc each, in parallel) and print the
+   card (nvidia-smi name, power limit);
+2. K1 (blocked-ACSR SpMV) against its plain version at the seven
+   llama3-8b projection geometries, 4 and 32 columns, density 0.25;
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row;
-4. kernel, plain-version and library times (CUDA events, median, L2
-   flushed) beside the least time the card needs for the same bytes;
-5. the main path: llama3-8b at full width, ``Engine.compress(aida 0.25)``
-   then four requests served, with every launch counted;
-6. a reduced llama3-8b served on the card and on the CPU gives the same
-   greedy tokens (or differs only at a near-tie).
+4. K3 (paged-attention chunk) likewise at C = 1 and 8, with padded
+   queries past the written context; at C = 1 it must equal K2 bit for
+   bit;
+5. K4 (int8 FC) and K5 (codebook4 FC) against their plain versions at the
+   seven projections, M = 4 and 32 rows, with bias and silu;
+6. kernel, plain-version and library times (CUDA events, median, L2
+   flushed) beside the least time the card needs for the same work;
+7. the main path: llama3-8b at full width, ``Engine.compress(aida 0.25)``
+   then four requests served at chunk 1 and at chunk 8 (tokens equal up
+   to near-tie flips), with every launch counted;
+8. fresh int8 and codebook4 engines serve the same requests at chunk 8
+   through K4 / K5;
+9. a reduced llama3-8b served on the card and on the CPU gives the same
+   greedy tokens (or differs only at a near-tie), in all three modes.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
@@ -37,6 +46,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
+KERNELS = [                        # (name, csrc file, TPU kernel replaced)
+    ("acsr_spmv", "acsr_spmv.cu", "src/repro/kernels/acsr_spmv.py:160"),
+    ("paged_attention_decode", "paged_attention.cu",
+     "src/repro/kvstore/paged_attention.py:150"),
+    ("paged_attention_chunk", "paged_attention.cu",
+     "src/repro/kvstore/paged_attention.py:279"),
+    ("int8_matmul", "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:27"),
+    ("lut_matmul", "lut_matmul.cu", "src/repro/kernels/lut_matmul.py:41"),
+]
 PROJECTIONS = [                    # llama3-8b: (name, n_out, n_in)
     ("wq", 4096, 4096), ("wk", 1024, 4096), ("wv", 1024, 4096),
     ("wo", 4096, 4096), ("gate", 14336, 4096), ("up", 14336, 4096),
@@ -77,9 +96,11 @@ def median_ms(fn, iters=20, warmup=3, flush=None):
     return times[len(times) // 2], host * 1e3
 
 
-def bound(bytes_, flops):
+def bound(bytes_, flops, rate=F32_FLOPS):
+    """Least ms for the call: its bytes over the memory rate or its
+    operations over the peak ``rate`` for their type, whichever is more."""
     t_b = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_o = flops / F32_FLOPS * 1e3
+    t_o = flops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -95,14 +116,18 @@ def check_close(name, out, ref, rtol, atol):
 
 # ------------------------------------------------------------------ K1
 def k1_phase(dev, flush):
+    """K1 against its plain version at the seven projections (and one acsr
+    f32 case), at the decode batch (4 columns) and a chunk-8 step's (32
+    columns).  Returns the max error and the per-layer totals by column
+    count."""
     import torch
     from repro_torch.core import sparse_fc as sfc
     from repro_torch.kernels import acsr_spmv as sp
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(0)
-    batch, max_err = 4, 0.0
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0, "bound_by": "bytes"}
+    max_err = 0.0
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    totals = {batch: dict.fromkeys(keys, 0.0) for batch in (4, 32)}
     cases = [(n, o, i, "aida") for n, o, i in PROJECTIONS] + \
         [("wo-acsr-f32", 4096, 4096, "acsr")]
     for name, n_out, n_in, mode in cases:
@@ -117,50 +142,50 @@ def k1_phase(dev, flush):
                 raise AssertionError("compressing the same matrix twice on "
                                      "the card gave different containers")
             del again
-        x = torch.randn((n_in, batch), generator=gen, device=dev)
         act = "silu" if name == "gate" else None
         bias = torch.randn((n_out,), generator=gen, device=dev) \
             if name == "wq" else None
-        out = sp.acsr_spmv(b, x, bias=bias, activation=act)
         rows = b.nblocks * b.block_rows
         pb = None if bias is None else \
             torch.nn.functional.pad(bias, (0, rows - n_out))
-        plain = ref.blocked_acsr_spmv_ref(b.values, b.col_idx, b.row_nnz,
-                                          x, b.centroids, pb, act)[:n_out]
-        torch.cuda.synchronize()
-        err = check_close(f"acsr_spmv {name}", out, plain, 1e-4, 1e-4)
-        max_err = max(max_err, err)
-        nnz = int(b.row_nnz.sum())
-        vbytes = b.values.element_size()
-        moved = nnz * (vbytes + b.col_idx.element_size()) + \
-            b.row_nnz.numel() * 4 + x.numel() * 4 + n_out * batch * 4 + \
-            (64 if b.centroids is not None else 0) + \
-            (n_out * 4 if bias is not None else 0)
-        bms, by = bound(moved, 2 * nnz * batch)
         w_lib = sfc.dense_equivalent(layer).T.contiguous().to(torch.bfloat16)
-        x_lib = x.T.contiguous().to(torch.bfloat16)
-        t_k, host = median_ms(lambda: sp.acsr_spmv(b, x, bias=bias,
-                                                   activation=act),
-                              flush=flush)
-        t_p, _ = median_ms(lambda: ref.blocked_acsr_spmv_ref(
-            b.values, b.col_idx, b.row_nnz, x, b.centroids, pb, act),
-            iters=5, flush=flush)
-        t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib), flush=flush)
-        log(f"K1 {name:12s} {n_out}x{n_in} rmax={b.rmax} nnz={nnz} "
-            f"err={err:.2e} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-            f"library_ms={t_l:.4f} bound_ms={bms:.4f} ({by}) "
-            f"host_enqueue_ms={host:.4f}")
-        if mode == "aida":         # one layer's seven projections
-            totals["ms"] += t_k
-            totals["plain_ms"] += t_p
-            totals["bound_ms"] += bms
-            totals["library_ms"] += t_l
-            totals["bound_by"] = by
+        nnz = int(b.row_nnz.sum())
+        for batch in (4, 32):
+            x = torch.randn((n_in, batch), generator=gen, device=dev)
+            out = sp.acsr_spmv(b, x, bias=bias, activation=act)
+            plain = ref.blocked_acsr_spmv_ref(b.values, b.col_idx, b.row_nnz,
+                                              x, b.centroids, pb, act)[:n_out]
+            torch.cuda.synchronize()
+            err = check_close(f"acsr_spmv {name} B={batch}", out, plain,
+                              1e-4, 1e-4)
+            max_err = max(max_err, err)
+            moved = nnz * (b.values.element_size()
+                           + b.col_idx.element_size()) + \
+                b.row_nnz.numel() * 4 + x.numel() * 4 + n_out * batch * 4 + \
+                (64 if b.centroids is not None else 0) + \
+                (n_out * 4 if bias is not None else 0)
+            bms, by = bound(moved, 2 * nnz * batch)
+            x_lib = x.T.contiguous().to(torch.bfloat16)
+            t_k, host = median_ms(lambda: sp.acsr_spmv(b, x, bias=bias,
+                                                       activation=act),
+                                  flush=flush)
+            t_p, _ = median_ms(lambda: ref.blocked_acsr_spmv_ref(
+                b.values, b.col_idx, b.row_nnz, x, b.centroids, pb, act),
+                iters=5, flush=flush)
+            t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
+                               flush=flush)
+            log(f"K1 {name:12s} {n_out}x{n_in} B={batch:2d} rmax={b.rmax} "
+                f"nnz={nnz} err={err:.2e} kernel_ms={t_k:.4f} "
+                f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+                f"bound_ms={bms:.4f} ({by}) host_enqueue_ms={host:.4f}")
+            if mode == "aida":     # one layer's seven projections
+                for key, v in zip(keys, (t_k, t_p, bms, t_l)):
+                    totals[batch][key] += v
+                totals[batch]["bound_by"] = by
         del w, layer, b, w_lib
-    log(f"K1 one layer (7 projections, B=4): kernel_ms={totals['ms']:.4f} "
-        f"plain_ms={totals['plain_ms']:.4f} "
-        f"library_ms={totals['library_ms']:.4f} "
-        f"bound_ms={totals['bound_ms']:.4f}")
+    for batch, row in totals.items():
+        log(f"K1 one layer (7 projections, B={batch}): "
+            + " ".join(f"{k}={row[k]:.4f}" for k in keys))
     return max_err, totals
 
 
@@ -229,7 +254,7 @@ def k2_phase(dev, flush):
         moved = 2 * live_pages * hkv * ps * dh * 2 + q.numel() * 2 + \
             b * h * dh * 4 + table.numel() * 4 + b * 4
         flops = 4 * (live_pages * ps) * (h // hkv) * hkv * dh
-        bms, by = bound(moved, flops)
+        bms, by = bound(moved, flops, BF16_FLOPS)
         t_k, host = median_ms(lambda: paged_attention(
             q, pool, table, cur, -1, scale=scale), flush=flush)
         t_p, _ = median_ms(lambda: ref.paged_attention_ref(
@@ -251,19 +276,200 @@ def k2_phase(dev, flush):
     return max_err, rows[37]
 
 
-# --------------------------------------------------------------- serve
-def serve_phase(dev, layers):
-    import dataclasses
-
-    import numpy as np
+# ------------------------------------------------------------------ K3
+def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None):
+    """K2's pool and table (holes in row 1, row 3 idle) with a chunk of
+    queries per row: rows 0 and 1 end their chunk at ``ctx - 1``; row 2
+    feeds 3 tokens, so its padded queries run past the written context,
+    into -1 table entries (and past the table at the widest context)."""
     import torch
-    from repro_torch import CompressionSpec, Engine, Request, get
-    from repro_torch.kernels.acsr_spmv import acsr_spmv
-    from repro_torch.kvstore.paged_attention import paged_attention
+    q1, pool, table, _ = _k2_inputs(dev, gen, ctx, kv_dtype,
+                                    max_len=max_len)
+    b, h, dh = q1.shape
+    q = torch.randn((b, h, chunk, dh), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    start = torch.tensor([ctx - chunk, ctx - chunk, ctx - 3, 0],
+                         dtype=torch.int32, device=dev)
+    q_pos = (start[:, None] + torch.arange(chunk, dtype=torch.int32,
+                                           device=dev)).contiguous()
+    return q, pool, table, q_pos
+
+
+def k3_phase(dev, flush):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kvstore.paged_attention import (paged_attention,
+                                                     paged_attention_chunk)
+    from repro_torch.kvstore.pool import chunk_attention_mask
+    gen = torch.Generator(device=dev).manual_seed(2)
+    max_err, scale, n = 0.0, 128 ** -0.5, 0
+    for chunk in (1, 8):
+        for ctx in (37, 2048):
+            for kv_dtype in ("bf16", "int8"):
+                q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv_dtype,
+                                                   chunk)
+                for window in (-1, 64):
+                    for cap in (None, 30.0):
+                        out = paged_attention_chunk(q, pool, table, q_pos,
+                                                    window, scale=scale,
+                                                    cap=cap)
+                        plain = ref.paged_attention_chunk_ref(
+                            q, *pool, table, q_pos, window, scale, cap)
+                        torch.cuda.synchronize()
+                        err = check_close(
+                            f"paged_attention_chunk C={chunk} ctx={ctx} "
+                            f"{kv_dtype} window={window} cap={cap}", out,
+                            plain, 0, 1e-4)
+                        max_err = max(max_err, err)
+                        n += 1
+                        if chunk == 1:    # the reference's own contract
+                            dec = paged_attention(q[:, :, 0], pool, table,
+                                                  q_pos[:, 0], window,
+                                                  scale=scale, cap=cap)
+                            if not torch.equal(dec, out[:, :, 0]):
+                                raise AssertionError(
+                                    "a C=1 chunk differs from the decode "
+                                    f"kernel (ctx={ctx} {kv_dtype} "
+                                    f"window={window} cap={cap})")
+    log(f"K3 {n} cases agree, max abs err {max_err:.2e}; C=1 is "
+        "bit-identical to K2 in all 16")
+    rows = {}
+    for ctx, max_len in ((37, 256), (2048, 2048)):
+        q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, "bf16", 8,
+                                           max_len=max_len)
+        _, hkv, ps, dh = pool.k_pages.shape
+        b, h, c = q.shape[:3]
+        npp = table.shape[1]
+        mask = chunk_attention_mask(table, q_pos, -1, ps)     # [B, C, S]
+        # bytes: the pages up to each row's last query, read once
+        last = torch.clamp(q_pos.max(dim=1).values // ps, max=npp - 1)
+        live_pages = int(((table >= 0) & (
+            torch.arange(npp, device=dev)[None, :] <= last[:, None])).sum())
+        moved = 2 * live_pages * hkv * ps * dh * 2 + q.numel() * 2 + \
+            q.numel() * 4 + table.numel() * 4 + q_pos.numel() * 4
+        flops = 4 * int(mask.sum()) * h * dh
+        bms, by = bound(moved, flops, BF16_FLOPS)
+        t_k, host = median_ms(lambda: paged_attention_chunk(
+            q, pool, table, q_pos, -1, scale=scale), flush=flush)
+        t_p, _ = median_ms(lambda: ref.paged_attention_chunk_ref(
+            q, *pool, table, q_pos, -1, scale, None), iters=5, flush=flush)
+        safe = table.long().clamp(min=0)
+        kk = pool.k_pages[safe].permute(0, 2, 1, 3, 4).reshape(
+            b, hkv, -1, dh).contiguous()
+        vv = pool.v_pages[safe].permute(0, 2, 1, 3, 4).reshape(
+            b, hkv, -1, dh).contiguous()
+        amask = mask[:, None].contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        t_l, _ = median_ms(lambda: sdpa(q, kk, vv, attn_mask=amask,
+                                        scale=scale, enable_gqa=True),
+                           flush=flush)
+        log(f"K3 C={c} ctx={ctx} npp={npp} live_pages={live_pages} "
+            f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+            f"bound_ms={bms:.5f} ({by}) host_enqueue_ms={host:.4f}")
+        rows[ctx] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
+                     "bound_by": by, "library_ms": t_l}
+    return max_err, rows[37]
+
+
+# -------------------------------------------------------------- K4, K5
+def fc_phase(dev, flush):
+    """K4 (int8) and K5 (codebook4) against their plain versions at
+    llama3-8b's seven projections, at the decode rows (M = 4) and a
+    chunk-8 step's rows (M = 32), with bias on wq and silu on gate.
+    Times are summed over one layer's seven projections per M."""
+    import torch
+    from repro_torch.core import sparse_fc as sfc
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import lut_matmul as lm
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = {"int8": 0.0, "codebook4": 0.0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    tot = {(mode, m): dict.fromkeys(keys, 0.0)
+           for mode in errs for m in (4, 32)}
+    for name, n_out, n_in in PROJECTIONS:
+        w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
+            n_in ** -0.5
+        act = "silu" if name == "gate" else None
+        bias = torch.randn((n_out,), generator=gen, device=dev) \
+            if name == "wq" else None
+        for mode in errs:
+            layer = sfc.compress(w, mode=mode)
+            if mode == "int8":
+                wts = (layer.qt.q, layer.qt.scale)
+                kern, plain_fn = i8.int8_matmul, i8.int8_matmul_ref
+                wbytes = n_out * n_in + n_out * 4
+            else:
+                wts = (layer.codes_packed, layer.centroids)
+                kern, plain_fn = lm.lut_matmul, lm.lut_matmul_ref
+                wbytes = n_out * n_in // 2 + 64
+            w_lib = sfc.dense_equivalent(layer).T.contiguous().to(
+                torch.bfloat16)
+            for m in (4, 32):
+                x = torch.randn((m, n_in), generator=gen, device=dev)
+                out = kern(x, *wts, bias=bias, activation=act)
+                plain = plain_fn(x, *wts, bias, act)
+                torch.cuda.synchronize()
+                err = check_close(f"{mode} {name} M={m}", out, plain, 1e-4,
+                                  1e-4)
+                errs[mode] = max(errs[mode], err)
+                moved = wbytes + m * n_in * 4 + m * n_out * 4 + \
+                    (n_out * 4 if bias is not None else 0)
+                bms, by = bound(moved, 2 * m * n_out * n_in)
+                t_k, host = median_ms(lambda: kern(x, *wts, bias=bias,
+                                                   activation=act),
+                                      flush=flush)
+                t_p, _ = median_ms(lambda: plain_fn(x, *wts, bias, act),
+                                   iters=5, flush=flush)
+                x_lib = x.to(torch.bfloat16)
+                t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
+                                   flush=flush)
+                log(f"{'K4' if mode == 'int8' else 'K5'} {mode:9s} "
+                    f"{name:4s} {n_out}x{n_in} M={m:2d} err={err:.2e} "
+                    f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                    f"library_ms={t_l:.4f} bound_ms={bms:.4f} ({by}) "
+                    f"host_enqueue_ms={host:.4f}")
+                row = tot[(mode, m)]
+                for key, v in zip(keys, (t_k, t_p, bms, t_l)):
+                    row[key] += v
+                row[by] = row.get(by, 0.0) + bms
+            del layer, w_lib
+        del w
+    for (mode, m), row in tot.items():
+        # the label of the larger share of the summed bound
+        row["bound_by"] = max(("bytes", "operations"),
+                              key=lambda k: row.pop(k, 0.0))
+        log(f"{mode} one layer (7 projections, M={m}): "
+            + " ".join(f"{k}={row[k]:.4f}" for k in keys)
+            + f" bound_by={row['bound_by']}")
+    return errs, tot
+
+
+# --------------------------------------------------------------- serve
+def _llama(layers):
+    import dataclasses
+    from repro_torch import get
     cfg = get("llama3-8b")
     if layers != cfg.n_layers:
         log(f"depth cut: {layers} of {cfg.n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def _launch_counters():
+    """The five kernel wrappers, by the name the kernels line gives them."""
+    from repro_torch.kernels.acsr_spmv import acsr_spmv
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.lut_matmul import lut_matmul
+    from repro_torch.kvstore.paged_attention import (paged_attention,
+                                                     paged_attention_chunk)
+    return {"acsr_spmv": acsr_spmv, "paged_attention_decode": paged_attention,
+            "paged_attention_chunk": paged_attention_chunk,
+            "int8_matmul": int8_matmul, "lut_matmul": lut_matmul}
+
+
+def _compressed_engine(dev, cfg, spec, label):
+    import torch
+    from repro_torch import Engine
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eng = Engine(cfg, device=dev, seed=0)
@@ -271,64 +477,149 @@ def serve_phase(dev, layers):
     torch.cuda.synchronize(dev)
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng.compress(CompressionSpec(mode="aida", density=0.25))
+    eng.compress(spec)
     torch.cuda.synchronize(dev)
     t_comp = time.perf_counter() - t0
-    peak_compress = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    log(f"serve: init {t_init:.2f} s, compress {t_comp:.2f} s, ratio "
-        f"{eng.stats['ratio']:.3f} vs bf16, peak {peak_compress:.2f} GiB")
-    warm = eng.session(batch_slots=4, max_len=256)   # cuBLAS, library load
-    warm.submit(Request(prompt=[1, 2], max_new=2, rid=0))
-    warm.run()
+    log(f"{label}: init {t_init:.2f} s, compress {t_comp:.2f} s, ratio "
+        f"{eng.stats['ratio']:.3f} vs bf16, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    return eng
+
+
+def _requests(cfg, max_new=16):
+    import numpy as np
+    from repro_torch import Request
     rng = np.random.default_rng(0)
-    lens = (5, 9, 16, 23)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
-                    max_new=16, rid=i) for i, n in enumerate(lens)]
-    sess = eng.session(batch_slots=4, max_len=256)
-    for r in reqs:
+    return [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_new=max_new, rid=i)
+            for i, n in enumerate((5, 9, 16, 23))]
+
+
+def _serve(dev, eng, label, fc_kernel, chunk):
+    """Serve the four requests once, every launch count set to 0 just
+    before and read just after; checks 4/4 requests, finite logits, no
+    leaked page and that every projection and layer went through the
+    kernels.  Returns (results, session, launch counts, the FC kernel's
+    launches by rows: 4 on a decode step, 4 * chunk on a chunked one)."""
+    import torch
+    sess = eng.session(batch_slots=4, max_len=256,
+                       scheduler={"chunk": chunk})
+    for r in _requests(eng.cfg):
         sess.submit(r)
+    fns = _launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
-    acsr_spmv.launches = 0
-    paged_attention.launches = 0
+    for f in fns.values():
+        f.launches = 0
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     res = sess.run()
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    k1, k2 = acsr_spmv.launches, paged_attention.launches
+    counts = {k: f.launches for k, f in fns.items()}
+    n_layers = eng.cfg.n_layers
     steps = sess.stats["steps"]
+    pre = sess.stats["prefill_steps"]
     n_tok = sum(len(r.tokens) for r in res)
-    log(f"serve: {len(res)}/4 requests, {n_tok} tokens, {steps} steps, "
-        f"{dt * 1e3 / steps:.2f} ms/step, {n_tok / dt:.2f} tok/s, "
-        f"peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB "
-        f"while serving")
-    log(f"serve: launches acsr_spmv={k1} (7x{cfg.n_layers}x{steps}="
-        f"{7 * cfg.n_layers * steps}), paged_attention={k2} "
-        f"({cfg.n_layers}x{steps}={cfg.n_layers * steps})")
-    log("serve: tokens " + json.dumps({r.rid: r.tokens for r in res}))
+    log(f"{label}: {len(res)}/4 requests, {n_tok} tokens, {steps} steps "
+        f"({pre} chunked, {steps - pre} decode), "
+        f"{dt * 1e3 / steps:.2f} ms/step, {n_tok / dt:.2f} tok/s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB while "
+        "serving")
+    want = dict.fromkeys(fns, 0)
+    want.update({fc_kernel: 7 * n_layers * steps,
+                 "paged_attention_chunk": n_layers * pre,
+                 "paged_attention_decode": n_layers * (steps - pre)})
+    log(f"{label}: launches {json.dumps(counts)} (expected "
+        f"{json.dumps(want)})")
+    log(f"{label}: tokens " + json.dumps({r.rid: r.tokens for r in res}))
     if len(res) != 4 or any(len(r.tokens) != 16 for r in res):
-        raise AssertionError("serve did not finish 4/4 requests")
-    if k1 != 7 * cfg.n_layers * steps or k2 != cfg.n_layers * steps:
-        raise AssertionError("the main path did not go through the kernels "
-                             "on every projection and layer")
+        raise AssertionError(f"{label} did not finish 4/4 requests")
+    if counts != want:
+        raise AssertionError(f"{label} did not go through the kernels on "
+                             "every projection and layer")
     if sess.stats["nonfinite_logit_rows"]:
-        raise AssertionError("non-finite logits were emitted")
+        raise AssertionError(f"{label}: non-finite logits were emitted")
     if sess.alloc.in_use:
-        raise AssertionError(f"{sess.alloc.in_use} pages leaked")
-    trace_decode(eng, reqs)
-    return k1, k2
+        raise AssertionError(f"{label}: {sess.alloc.in_use} pages leaked")
+    by_rows = {4: 7 * n_layers * (steps - pre), 4 * chunk: 7 * n_layers * pre}
+    return res, sess, counts, by_rows
 
 
-def trace_decode(eng, reqs):
+def _near_tie_flips(ref, margins, got, what):
+    """Greedy streams agree, or first differ where the reference's top-2
+    logit margin is below 1e-2 (a near-tie rounding may flip); returns the
+    number of such flips."""
+    flips = 0
+    for r, g in zip(ref, got):
+        for j, (a, b) in enumerate(zip(r.tokens, g.tokens)):
+            if a != b:
+                if margins[r.rid][j] >= 1e-2:
+                    raise AssertionError(
+                        f"{what}: rid {r.rid} token {j} differs at top-2 "
+                        f"margin {margins[r.rid][j]:.3g}")
+                flips += 1
+                break
+    return flips
+
+
+def serve_phase(dev, layers):
+    """The slice's main path: the aida engine serves the four requests at
+    chunk 1, then at chunk 8 (K3 on the chunked steps, K2 on the decode
+    steps); the chunk-8 tokens must equal the chunk-1 ones up to near-tie
+    flips.  Returns the chunk-8 serve's launch counts and K1's launches by
+    column count."""
+    from repro_torch import CompressionSpec, Request
+    cfg = _llama(layers)
+    eng = _compressed_engine(dev, cfg, CompressionSpec(mode="aida",
+                                                       density=0.25),
+                             "serve aida")
+    for chunk in (1, 8):                  # library load, cuBLAS handles
+        warm = eng.session(batch_slots=4, max_len=256,
+                           scheduler={"chunk": chunk})
+        warm.submit(Request(prompt=[1, 2, 3], max_new=2, rid=0))
+        warm.run()
+    ref, sess1, _, _ = _serve(dev, eng, "serve aida chunk 1", "acsr_spmv",
+                              1)
+    got, _, counts, by_rows = _serve(dev, eng, "serve aida chunk 8",
+                                     "acsr_spmv", 8)
+    flips = _near_tie_flips(ref, sess1.margins, got, "chunk 8 vs chunk 1")
+    log(f"serve: chunk-8 vs chunk-1 greedy tokens: "
+        f"{'identical' if not flips else f'{flips} near-tie flips'}")
+    trace_serve(eng, 1)
+    trace_serve(eng, 8)
+    return counts, by_rows
+
+
+def fc_mode_serves(dev, layers):
+    """Fresh int8 and codebook4 engines at full width serve the four
+    requests at chunk 8 through K4 / K5.  Returns each one's FC kernel
+    launches by rows."""
+    import gc
+
+    import torch
+    from repro_torch import CompressionSpec
+    cfg = _llama(layers)
+    counts = {}
+    for mode, kern in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = _compressed_engine(dev, cfg, CompressionSpec(mode=mode),
+                                 f"serve {mode}")
+        counts[kern] = _serve(dev, eng, f"serve {mode} chunk 8", kern, 8)[3]
+        del eng
+    return counts
+
+
+def trace_serve(eng, chunk):
     """Device busy share and kernel time by family over a short serve of
     the same requests (4 new tokens each), from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import Request
-    sess = eng.session(batch_slots=4, max_len=256)
-    for r in reqs:
-        sess.submit(Request(prompt=list(r.prompt), max_new=4, rid=r.rid))
+    sess = eng.session(batch_slots=4, max_len=256,
+                       scheduler={"chunk": chunk})
+    for r in _requests(eng.cfg, max_new=4):
+        sess.submit(r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -347,7 +638,8 @@ def trace_decode(eng, reqs):
         fam[key] += e.time_range.elapsed_us() / 1e3
     busy = sum(fam.values())
     steps = sess.stats["steps"]
-    log(f"trace: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
+    log(f"trace chunk {chunk}: {steps} steps, wall "
+        f"{wall * 1e3 / steps:.2f} ms/step, "
         f"device busy {busy / steps:.3f} ms/step "
         f"({100 * busy / (wall * 1e3):.1f}% of wall), kernels "
         f"{len(kernels) / steps:.0f}/step; ms/step by family: " +
@@ -355,33 +647,48 @@ def trace_decode(eng, reqs):
 
 
 def cross_check(dev):
+    """A reduced llama3-8b served on the card and on the CPU from the same
+    weights gives the same greedy tokens (or differs only at a near-tie):
+    aida at chunk 1 and 8, int8 and codebook4 at chunk 8."""
     from repro_torch import CompressionSpec, Engine, Request, bridge, get
     from repro_torch import reduced
     cfg = reduced(get("llama3-8b"))
-    cpu = Engine(cfg, device="cpu", seed=0).compress(
-        CompressionSpec(mode="aida", density=0.25))
-    gpu = Engine(cfg, params=bridge.to_device(cpu.params, dev), device=dev)
-    out = {}
-    for name, eng in (("cpu", cpu), ("cuda", gpu)):
-        sess = eng.session(batch_slots=4, max_len=256)
-        for i, n in enumerate((5, 9, 16, 23)):
-            sess.submit(Request(prompt=[(7 * i + 3 * j) % cfg.vocab
-                                        for j in range(n)],
-                                max_new=16, rid=i))
-        out[name] = (sess.run(), sess.margins)
-    (ref, margins), (got, _) = out["cpu"], out["cuda"]
-    flips = 0
-    for r, g in zip(ref, got):
-        for j, (a, b) in enumerate(zip(r.tokens, g.tokens)):
-            if a != b:
-                if margins[r.rid][j] >= 1e-2:
-                    raise AssertionError(
-                        f"cross-check: rid {r.rid} token {j} differs at "
-                        f"top-2 margin {margins[r.rid][j]:.3g}")
-                flips += 1
-                break
-    log(f"cross-check: reduced llama3-8b, cuda vs cpu greedy tokens: "
-        f"{'identical' if not flips else f'{flips} near-tie flips'}")
+    for mode, chunk in (("aida", 1), ("aida", 8), ("int8", 8),
+                        ("codebook4", 8)):
+        cpu = Engine(cfg, device="cpu", seed=0).compress(
+            CompressionSpec(mode=mode, density=0.25))
+        gpu = Engine(cfg, params=bridge.to_device(cpu.params, dev),
+                     device=dev)
+        out = {}
+        for name, eng in (("cpu", cpu), ("cuda", gpu)):
+            sess = eng.session(batch_slots=4, max_len=256,
+                               scheduler={"chunk": chunk})
+            for i, n in enumerate((5, 9, 16, 23)):
+                sess.submit(Request(prompt=[(7 * i + 3 * j) % cfg.vocab
+                                            for j in range(n)],
+                                    max_new=16, rid=i))
+            out[name] = (sess.run(), sess.margins)
+        (ref, margins), (got, _) = out["cpu"], out["cuda"]
+        flips = _near_tie_flips(ref, margins, got,
+                                f"cross-check {mode} chunk {chunk}")
+        log(f"cross-check: reduced llama3-8b {mode} chunk {chunk}, cuda vs "
+            f"cpu greedy tokens: "
+            f"{'identical' if not flips else f'{flips} near-tie flips'}")
+
+
+def _by_shape(times, launches):
+    """An FC kernel's numbers for the kernels line: per layer (seven
+    projections) at each row count the main path gives it, beside that
+    shape's launches, and at the top level their launch-weighted mean, so
+    the shape that takes most of the kernel's time weighs most."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    shapes = [{"rows": m, "launches": launches.get(m, 0), **times[m]}
+              for m in sorted(times)]
+    n = sum(s["launches"] for s in shapes)
+    top = {k: sum(s["launches"] * s[k] for s in shapes) / n for k in keys}
+    top["bound_by"] = max(shapes, key=lambda s: s["launches"] *
+                          s["bound_ms"])["bound_by"]
+    return {**top, "shapes": shapes}
 
 
 def main(argv=None) -> int:
@@ -394,8 +701,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
-    from repro_torch.kernels.acsr_spmv import acsr_spmv
-    from repro_torch.kvstore.paged_attention import paged_attention
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -406,28 +711,36 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t_build = build.build_all()
-    log(f"kernel build: {t_build:.2f} s")
+    log(f"kernel build: {t_build:.2f} s ({len(build.SOURCES)} libraries)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    k1_err, k1_t = k1_phase(dev, flush)
-    k2_err, k2_t = k2_phase(dev, flush)
+    errs, times = {}, {}
+    errs["acsr_spmv"], times["acsr_spmv"] = k1_phase(dev, flush)
+    errs["paged_attention_decode"], times["paged_attention_decode"] = \
+        k2_phase(dev, flush)
+    errs["paged_attention_chunk"], times["paged_attention_chunk"] = \
+        k3_phase(dev, flush)
+    fc_errs, fc_times = fc_phase(dev, flush)
+    for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
+        errs[name] = fc_errs[mode]
+        times[name] = {m: fc_times[(mode, m)] for m in (4, 32)}
     del flush
     layers = args.layers or 32
-    k1_n, k2_n = serve_phase(dev, layers)
+    launches, by_rows = serve_phase(dev, layers)
+    by_rows = {"acsr_spmv": by_rows, **fc_mode_serves(dev, layers)}
+    launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())
+    launches["lut_matmul"] = sum(by_rows["lut_matmul"].values())
     cross_check(dev)
-    kernels = [
-        {"name": "acsr_spmv", "route": "cuda",
-         "source": "src/repro_torch/csrc/acsr_spmv.cu",
-         "replaces": "src/repro/kernels/acsr_spmv.py:160",
-         "launches": k1_n, "max_abs_err": k1_err, "ms": k1_t["ms"],
-         "plain_ms": k1_t["plain_ms"], "bound_ms": k1_t["bound_ms"],
-         "bound_by": k1_t["bound_by"], "library_ms": k1_t["library_ms"]},
-        {"name": "paged_attention_decode", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kvstore/paged_attention.py:150",
-         "launches": k2_n, "max_abs_err": k2_err, "ms": k2_t["ms"],
-         "plain_ms": k2_t["plain_ms"], "bound_ms": k2_t["bound_ms"],
-         "bound_by": k2_t["bound_by"], "library_ms": k2_t["library_ms"]},
-    ]
+    kernels = []
+    for name, source, replaces in KERNELS:
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{source}",
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errs[name]}
+        if name in by_rows:     # FC kernels: per layer, at 4 and 32 rows
+            row.update(_by_shape(times[name], by_rows[name]))
+        else:
+            row.update(times[name])
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.api.spec import CompressionSpec
+from repro_torch.core import quant as q
 from repro_torch.core import sparse_fc as sfc
 from repro_torch.kernels import acsr_spmv as sp
 
@@ -20,7 +21,9 @@ SKIP_SUBSTR = ("ln", "mu", "bq", "bk", "bv", "conv", "A_log", "dt",
 
 
 def _stack_compressed(per_layer: List[sfc.CompressedFC]) -> sfc.CompressedFC:
-    """Stack per-layer CompressedFC into one [L, ...] container."""
+    """Stack per-layer CompressedFC into one [L, ...] container: int8 gives
+    q [L, N, K] and scale [L, N, 1], codebook4 codes_packed [L, N, K/2]
+    and centroids [L, 16]."""
     mode = per_layer[0].mode
     if mode in ("acsr", "aida"):
         # uniform slot depth across layers (padding slots are masked by
@@ -45,14 +48,27 @@ def _stack_compressed(per_layer: List[sfc.CompressedFC]) -> sfc.CompressedFC:
                        else torch.stack([b.centroids for b in bs])))
         return sfc.CompressedFC(mode=mode, shape=per_layer[0].shape,
                                 blocked=blocked)
-    return sfc.CompressedFC(mode=mode, shape=per_layer[0].shape,
-                            dense=torch.stack([c.dense for c in per_layer]))
+
+    def stk(name):
+        arrs = [getattr(c, name) for c in per_layer]
+        return None if arrs[0] is None else torch.stack(arrs)
+
+    qts = [c.qt for c in per_layer]
+    return sfc.CompressedFC(
+        mode=mode, shape=per_layer[0].shape, dense=stk("dense"),
+        qt=None if qts[0] is None else q.QTensor(
+            torch.stack([t.q for t in qts]),
+            torch.stack([t.scale for t in qts])),
+        codes_packed=stk("codes_packed"), centroids=stk("centroids"))
 
 
 def _leaf_bytes(c: sfc.CompressedFC) -> int:
-    arrs = [c.dense] if c.blocked is None else [
-        c.blocked.values, c.blocked.col_idx, c.blocked.row_nnz,
-        c.blocked.centroids]
+    arrs = [c.dense, c.codes_packed, c.centroids]
+    if c.qt is not None:
+        arrs += [c.qt.q, c.qt.scale]
+    if c.blocked is not None:
+        arrs += [c.blocked.values, c.blocked.col_idx, c.blocked.row_nnz,
+                 c.blocked.centroids]
     return sum(a.numel() * a.element_size() for a in arrs if a is not None)
 
 

@@ -5,10 +5,12 @@ Requests occupy slots; a finished slot is refilled from the scheduler's
 queue without stopping the batch.  The FIFO scheduler admits a request
 only when its worst-case page need fits the pool, and under page pressure
 the youngest slot is preempted back to the queue (recompute resume)
-instead of letting ``OutOfPages`` crash the batch.  Prompts feed token by
-token through the decode step (chunk 1).  Pages are allocated host-side
-the step a sequence crosses a page boundary and freed the moment its
-request completes.
+instead of letting ``OutOfPages`` crash the batch.  With ``chunk`` > 1 a
+step that has prompt tokens pending runs the chunked-prefill step (up to
+``chunk`` prompt tokens per prefilling slot, one token per decoding slot);
+otherwise, and with chunk 1, prompts feed token by token through the
+decode step.  Pages are allocated host-side the step a sequence crosses a
+page boundary and freed the moment its request completes.
 
 This slice serves the paged cache only, without mesh, disaggregated
 roles, fault injection, tracing or prefix cache: those land with later
@@ -57,6 +59,10 @@ class Session:
         self.page_size = page_size
         self.kv_dtype = kv_dtype or KV_DTYPE_DEFAULT
         self.sched = schd.Scheduler(schd.SchedConfig.coerce(scheduler))
+        # chunked prefill needs attention-only token mixing; elsewhere
+        # prompts feed token by token
+        self.chunk = self.sched.cfg.chunk \
+            if schd.supports_chunked_prefill(cfg) else 1
         self.state = M.init_decode_state(
             cfg, batch_slots, max_len, page_size=page_size,
             kv_pool_pages=kv_pool_pages, kv_dtype=self.kv_dtype,
@@ -74,7 +80,8 @@ class Session:
         self.results: List[Result] = []
         #: per request, the top-2 logit margin of every emitted token
         self.margins: Dict[int, List[float]] = {}
-        self.stats = {"steps": 0, "fills": 0, "preemptions": 0,
+        self.stats = {"steps": 0, "prefill_steps": 0, "fills": 0,
+                      "preemptions": 0, "chunk": self.chunk,
                       "page_allocs": 0, "pages_in_use": 0, "pages_peak": 0,
                       "nonfinite_logit_rows": 0}
 
@@ -96,7 +103,7 @@ class Session:
                         "admission blocked: the page pool is too small "
                         "for the head-of-line request's worst-case need")
                 break
-            self._advance_decode()
+            self._advance()
         else:
             if len(self.sched) or any(e is not None
                                       for e in self.slot_entry):
@@ -215,20 +222,44 @@ class Session:
                 counts[victim] = 0
 
     # ------------------------------------------------------------ stepping
+    def _advance(self):
+        """A chunked step while any active slot still has prompt tokens
+        pending, a decode step otherwise."""
+        if self.chunk > 1 and any(self.slot_pending[i]
+                                  for i, e in enumerate(self.slot_entry)
+                                  if e is not None):
+            self._advance_chunked()
+        else:
+            self._advance_decode()
+
+    def _active_counts(self, chunk: int) -> List[int]:
+        """Tokens each slot feeds this step: up to ``chunk`` pending prompt
+        tokens, else 1 (its next token); 0 for an idle slot."""
+        counts = [0] * self.slots
+        for i, entry in enumerate(self.slot_entry):
+            if entry is None:
+                continue
+            counts[i] = min(chunk, len(self.slot_pending[i])) \
+                if self.slot_pending[i] else 1
+        return counts
+
+    def _next_token(self, i: int, entry: schd.SchedEntry) -> int:
+        """The token a decoding slot feeds: its last output, else the last
+        prompt token."""
+        if self.slot_out[i]:
+            return self.slot_out[i][-1]
+        return entry.req.prompt[-1]
+
     def _advance_decode(self):
         """One token per active slot through the decode step."""
-        counts = [0 if e is None else 1 for e in self.slot_entry]
+        counts = self._active_counts(1)
         self._ensure_pages_or_preempt(counts)
         tokens = np.zeros((self.slots,), np.int64)
         for i, entry in enumerate(self.slot_entry):
             if entry is None:
                 continue
-            if self.slot_pending[i]:
-                tokens[i] = self.slot_pending[i][0]
-            elif self.slot_out[i]:
-                tokens[i] = self.slot_out[i][-1]
-            else:
-                tokens[i] = entry.req.prompt[-1]
+            tokens[i] = self.slot_pending[i][0] if self.slot_pending[i] \
+                else self._next_token(i, entry)
         with torch.no_grad():
             self.state, logits = M.decode_step(
                 self.cfg, self.params, self.state,
@@ -243,6 +274,45 @@ class Session:
                 continue
             if self.slot_pending[i]:
                 self.slot_pending[i].pop(0)
+                if self.slot_pending[i]:
+                    continue  # still prefilling
+            self._emit(i, logits[i])
+
+    def _advance_chunked(self):
+        """Mixed prefill + decode step: up to ``chunk`` prompt tokens per
+        prefilling slot, 1 token per decoding slot, all in one call."""
+        counts = self._active_counts(self.chunk)
+        self._ensure_pages_or_preempt(counts)
+        tokens = np.zeros((self.slots, self.chunk), np.int64)
+        for i, entry in enumerate(self.slot_entry):
+            if entry is None:
+                continue
+            if self.slot_pending[i]:
+                tokens[i, :counts[i]] = self.slot_pending[i][:counts[i]]
+            else:
+                tokens[i, 0] = self._next_token(i, entry)
+        with torch.no_grad():
+            self.state, logits = schd.prefill_step(
+                self.cfg, self.params, self.state,
+                torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(counts, dtype=torch.int32,
+                                device=self.device))
+        self.stats["steps"] += 1
+        self.stats["prefill_steps"] += 1
+        for i, entry in enumerate(self.slot_entry):
+            if entry is not None:
+                self.slot_pos[i] += counts[i]
+        # only each slot's last fed position is sampled: bring just those
+        # rows to the host
+        last = torch.as_tensor([max(c - 1, 0) for c in counts],
+                               device=self.device)
+        logits = logits[torch.arange(self.slots, device=self.device), last,
+                        : self.cfg.vocab].cpu().numpy()
+        for i, entry in enumerate(self.slot_entry):
+            if entry is None:
+                continue
+            if self.slot_pending[i]:
+                del self.slot_pending[i][:counts[i]]
                 if self.slot_pending[i]:
                     continue  # still prefilling
             self._emit(i, logits[i])

@@ -5,9 +5,10 @@ turned into a numpy array (``jax.tree.map(np.asarray, tree)`` keeps the
 reference's containers and swaps their arrays); this module reads those
 containers by their field names and never imports the reference.
 
-Covered: raw param dicts, ``CompressedFC`` in the dense / acsr / aida
-modes, stacked or single ``BlockedACSR`` (int16 or int32 col_idx, uint8
-codes or f32 / bf16 values, [L, 16] centroids) and the paged decode state
+Covered: raw param dicts, ``CompressedFC`` in all five modes (int8's
+``QTensor`` codes and scales, codebook4's packed codes and centroids),
+stacked or single ``BlockedACSR`` (int16 or int32 col_idx, uint8 codes or
+f32 / bf16 values, [L, 16] centroids) and the paged decode state
 (``PagedKV`` pools, ``pos``, ``page_table``).
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.quant import QTensor
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.kernels.acsr_spmv import BlockedACSR
 from repro_torch.kvstore.pool import PagedKV
@@ -41,13 +43,15 @@ def _blocked(b, device) -> BlockedACSR:
 
 
 def _compressed(c, device) -> CompressedFC:
-    if c.mode not in ("dense", "acsr", "aida"):
-        raise NotImplementedError(
-            f"mode {c.mode!r} is carried over with its kernels (K4, K5) in a "
-            "later slice of the port")
     return CompressedFC(
         mode=c.mode, shape=tuple(c.shape),
         dense=None if c.dense is None else tensor(c.dense, device),
+        qt=None if c.qt is None else QTensor(
+            tensor(c.qt.q, device), tensor(c.qt.scale, device)),
+        codes_packed=None if c.codes_packed is None
+        else tensor(c.codes_packed, device),
+        centroids=None if c.centroids is None
+        else tensor(c.centroids, device),
         blocked=None if c.blocked is None else _blocked(c.blocked, device))
 
 
@@ -77,7 +81,13 @@ def to_device(tree: Any, device) -> Any:
     if isinstance(tree, CompressedFC):
         return CompressedFC(tree.mode, tree.shape,
                             dense=to_device(tree.dense, device),
+                            qt=to_device(tree.qt, device),
+                            codes_packed=to_device(tree.codes_packed, device),
+                            centroids=to_device(tree.centroids, device),
                             blocked=to_device(tree.blocked, device))
+    if isinstance(tree, QTensor):
+        return QTensor(to_device(tree.q, device),
+                       to_device(tree.scale, device))
     if isinstance(tree, BlockedACSR):
         return BlockedACSR(to_device(tree.values, device),
                            to_device(tree.col_idx, device),

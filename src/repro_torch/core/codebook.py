@@ -1,7 +1,28 @@
-"""Codebook weight sharing: 1-D k-means over a layer's nonzeros."""
+"""Codebook weight sharing: 1-D k-means, nearest-centroid codes and 4-bit
+packing (two codes per byte, low nibble first)."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+#: elements per nearest-centroid pass: bounds the [n, k] distance tensor
+#: (a 14336 x 4096 matrix would otherwise need 3.8 GB of it)
+ASSIGN_CHUNK = 1 << 22
+
+
+def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest-centroid code of every element (the first centroid wins a
+    tie); uint8 [x.shape].  Runs in chunks of ``ASSIGN_CHUNK`` elements,
+    which changes nothing in the result."""
+    flat = x.reshape(-1).float()
+    cents = centroids.float()
+    codes = torch.empty(flat.shape, dtype=torch.uint8, device=flat.device)
+    for i in range(0, flat.numel(), ASSIGN_CHUNK):
+        part = flat[i:i + ASSIGN_CHUNK]
+        codes[i:i + ASSIGN_CHUNK] = (part[:, None] - cents[None, :]).abs() \
+            .argmin(dim=1).to(torch.uint8)
+    return codes.reshape(x.shape)
 
 
 def kmeans_1d(x: torch.Tensor, k: int = 16, iters: int = 25) -> torch.Tensor:
@@ -21,10 +42,36 @@ def kmeans_1d(x: torch.Tensor, k: int = 16, iters: int = 25) -> torch.Tensor:
     cents = lo + (hi - lo) * (torch.arange(k, dtype=torch.float32,
                                            device=xs.device) + 0.5) / k
     for _ in range(iters):
-        assign = (xs[:, None] - cents[None, :]).abs().argmin(dim=1)
-        cnts = torch.bincount(assign, minlength=k)
+        cnts = torch.bincount(assign(xs, cents).long(), minlength=k)
         ends = torch.cumsum(cnts, 0)
         sums = prefix[ends] - prefix[ends - cnts]
         cents = torch.where(cnts > 0,
                             (sums / torch.clamp(cnts, min=1)).float(), cents)
     return torch.sort(cents).values
+
+
+def pack4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack 4-bit codes two per byte along the last axis (even length),
+    the even position in the low nibble."""
+    if codes.shape[-1] % 2:
+        raise ValueError("the last axis must be even to pack")
+    lo = codes[..., 0::2].to(torch.uint8)
+    hi = codes[..., 1::2].to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack4`; doubles the last axis."""
+    out = torch.stack([packed & 0xF, packed >> 4], dim=-1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def quantize(w: torch.Tensor, k: int = 16,
+             iters: int = 25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cluster a weight tensor to a k-entry codebook (k <= 16); returns the
+    sorted centroids [k] f32 and the codes packed 4 bits each along the last
+    axis."""
+    if k > 16:
+        raise ValueError("packing takes 4-bit codes (k <= 16)")
+    cents = kmeans_1d(w, k=k, iters=iters)
+    return cents, pack4(assign(w, cents))

@@ -22,10 +22,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.codebook import assign
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-_ACTS = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
 _VALUE_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _COL_KINDS = {torch.int16: 0, torch.int32: 1}
 _MAX_BATCH_CHUNK = 8          # batch columns per kernel pass (MAXB in .cu)
@@ -115,8 +115,7 @@ def block_encode_coded(dense: torch.Tensor, centroids: torch.Tensor,
     codes = torch.zeros(b.values.shape, dtype=torch.uint8,
                         device=b.values.device)
     nz = b.values[live]
-    codes[live] = (nz[:, None] - cents[None, :]).abs().argmin(-1).to(
-        torch.uint8)
+    codes[live] = assign(nz, cents)
     return dataclasses.replace(b, values=codes, centroids=cents)
 
 
@@ -136,7 +135,7 @@ def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
         raise TypeError("uint8 values need centroids and vice versa")
     if br % 32 or br > 512:
         raise ValueError(f"block_rows {br} must be a multiple of 32, <= 512")
-    if activation not in _ACTS:
+    if activation not in ref.ACT_CODES:
         raise ValueError(f"unknown fused activation {activation!r}")
     if x2d.dtype != torch.float32:
         raise TypeError(f"x must be f32, got {x2d.dtype}")
@@ -176,7 +175,7 @@ def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
                 out.data_ptr(), part.data_ptr(),
                 _VALUE_KINDS[vals.dtype], _COL_KINDS[cols.dtype],
                 nb, rmax, br, sy, bsz, nsplit, per_split,
-                _ACTS[activation],
+                ref.ACT_CODES[activation],
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "acsr_spmv")
     acsr_spmv.launches += 1

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``.  Libraries land in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one loads at once.  Nothing is built at import: the first CUDA launch of
-a kernel (or an explicit :func:`build_all`) builds every missing library,
-one ``nvcc`` per source, all started together.
+the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds and an unchanged one loads at once.  Nothing is built at
+import: the first CUDA launch of a kernel (or an explicit
+:func:`build_all`) builds every missing library, one ``nvcc`` per source,
+all started together.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
-SOURCES = ("acsr_spmv", "paged_attention")
+SOURCES = ("acsr_spmv", "paged_attention", "int8_matmul", "lut_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,7 +43,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's key
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

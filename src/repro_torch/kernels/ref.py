@@ -11,6 +11,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+#: activation codes of the CUDA kernels' fused epilogues
+ACT_CODES = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
 
 
 def apply_activation(name: Optional[str], y: torch.Tensor) -> torch.Tensor:
@@ -52,20 +54,20 @@ def blocked_acsr_spmv_ref(values: torch.Tensor, col_idx: torch.Tensor,
     return apply_activation(activation, y)
 
 
-def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
-                        v_pages: torch.Tensor,
-                        k_scale: Optional[torch.Tensor],
-                        v_scale: Optional[torch.Tensor],
-                        table: torch.Tensor, cur_pos: torch.Tensor,
-                        window: int, scale: float,
-                        cap: Optional[float]) -> torch.Tensor:
-    """Decode attention through the page table, with the arithmetic of the
-    Pallas decode kernel: q, K and V upcast to f32 (int8 pages times their
+def paged_attention_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              k_scale: Optional[torch.Tensor],
+                              v_scale: Optional[torch.Tensor],
+                              table: torch.Tensor, q_pos: torch.Tensor,
+                              window: int, scale: float,
+                              cap: Optional[float]) -> torch.Tensor:
+    """Chunk attention through the page table, with the arithmetic of the
+    Pallas chunk kernel: q, K and V upcast to f32 (int8 pages times their
     per-(page, head) scale), scores scaled then soft-capped, masked to
-    -1e30 where ``table < 0``, past ``cur_pos`` or outside the window,
-    softmax, and ``acc / max(l, 1e-30)``.  -1 entries read page 0.
-    q [B, H, Dh] -> [B, H, Dh] f32."""
-    b, h, dh = q.shape
+    -1e30 per query where ``table < 0``, past its own ``q_pos`` or outside
+    the window, softmax, and ``acc / max(l, 1e-30)``.  -1 entries read
+    page 0.  q [B, H, C, Dh], q_pos [B, C] -> [B, H, C, Dh] f32."""
+    b, h, c, dh = q.shape
     _, hkv, ps, _ = k_pages.shape
     g = h // hkv
     npp = table.shape[1]
@@ -75,20 +77,36 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if k_scale is not None:
         k = k * k_scale[safe][..., None, None]
         v = v * v_scale[safe][..., None, None]
-    qg = q.float().reshape(b, hkv, g, dh)
-    s = torch.einsum("bkgd,bpkcd->bkgpc", qg, k) * scale
+    qg = q.float().reshape(b, hkv, g, c, dh)
+    s = torch.einsum("bkgqd,bpkjd->bkgqpj", qg, k) * scale
     if cap is not None:
         s = cap * torch.tanh(s / cap)
-    pos = torch.arange(npp * ps, device=q.device).reshape(1, npp, ps)
-    cur = cur_pos.long()[:, None, None]
-    mask = (table >= 0)[:, :, None] & (pos <= cur)
+    pos = torch.arange(npp * ps, device=q.device).reshape(1, 1, npp, ps)
+    cur = q_pos.long()[:, :, None, None]                  # [B, C, 1, 1]
+    mask = (table >= 0)[:, None, :, None] & (pos <= cur)  # [B, C, P, ps]
     if window >= 0:
         mask = mask & (pos > cur - window)
     s = torch.where(mask[:, None, None], s, NEG_INF)
-    s = s.reshape(b, hkv, g, npp * ps)
+    s = s.reshape(b, hkv, g, c, npp * ps)
     m = s.max(dim=-1, keepdim=True).values
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     vv = v.permute(0, 2, 1, 3, 4).reshape(b, hkv, npp * ps, dh)
-    o = torch.einsum("bkgc,bkcd->bkgd", p, vv) / torch.clamp(l, min=1e-30)
-    return o.reshape(b, h, dh)
+    o = torch.einsum("bkgqj,bkjd->bkgqd", p, vv) / torch.clamp(l, min=1e-30)
+    return o.reshape(b, h, c, dh)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor,
+                        k_scale: Optional[torch.Tensor],
+                        v_scale: Optional[torch.Tensor],
+                        table: torch.Tensor, cur_pos: torch.Tensor,
+                        window: int, scale: float,
+                        cap: Optional[float]) -> torch.Tensor:
+    """Decode attention through the page table: the chunk arithmetic of
+    :func:`paged_attention_chunk_ref` with one query per sequence, at
+    ``cur_pos`` [B].  q [B, H, Dh] -> [B, H, Dh] f32."""
+    return paged_attention_chunk_ref(q[:, :, None], k_pages, v_pages,
+                                     k_scale, v_scale, table,
+                                     cur_pos[:, None], window, scale,
+                                     cap)[:, :, 0]

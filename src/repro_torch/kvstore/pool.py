@@ -83,69 +83,95 @@ def init_table(batch: int, max_len: int, page_size: int,
 
 
 def _quantize(new: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """int8 codes of ``new`` [B, Hkv, Dh] against scales ``s`` [B, Hkv]:
-    round half to even, clip to +-127, 0 where the scale is 0."""
+    """int8 codes of ``new`` [..., Dh] against scales ``s`` [...]: round
+    half to even, clip to +-127, 0 where the scale is 0."""
     codes = torch.where(s[..., None] > 0,
                         new / torch.clamp(s[..., None], min=1e-30), 0.0)
     return torch.clamp(torch.round(codes), -127, 127).to(torch.int8)
 
 
-def _write_page_rescale(pages, scale, new, new_s, safe_page, slot):
-    """Slow path: grow the per-page scale, requantize the page's existing
-    codes against it, and write the new token's codes at ``slot``.  Only
-    the garbage page can see two writers."""
-    b = new.shape[0]
-    ps = pages.shape[2]
-    old_s = scale[safe_page]                              # [B, Hkv]
-    # ratio <= 1; a fresh page has old_s == 0, so stale codes are wiped
-    ratio = torch.where(new_s > 0, old_s / torch.clamp(new_s, min=1e-30),
-                        0.0)
-    pg = pages[safe_page].float()                         # [B, Hkv, ps, Dh]
-    pg = torch.round(pg * ratio[..., None, None])
-    hot = (torch.arange(ps, device=pages.device)[None, :]
-           == slot[:, None])                              # [B, ps]
-    pg = torch.where(hot[:, None, :, None],
-                     _quantize(new, new_s).float()[:, :, None, :], pg)
-    pages[safe_page] = pg.to(torch.int8)
-    scale[safe_page] = new_s
+def _segment_max(scale: torch.Tensor, safe: torch.Tensor,
+                 amax: torch.Tensor) -> torch.Tensor:
+    """``scale`` [n_pages, Hkv] grown to the largest ``amax`` [B, C, Hkv]
+    landing on each page (duplicate page ids are well defined: max is
+    order-free)."""
+    hkv = scale.shape[1]
+    return scale.scatter_reduce(0, safe.reshape(-1, 1).expand(-1, hkv),
+                                amax.reshape(-1, hkv), reduce="amax")
 
 
-def update(pool: PagedKV, table: torch.Tensor, k_new: torch.Tensor,
-           v_new: torch.Tensor, cur_pos: torch.Tensor) -> PagedKV:
-    """Write one token's k/v ([B, Hkv, Dh]) at absolute position
-    ``cur_pos`` [B] through the page table, in place.
+def update_chunk(pool: PagedKV, table: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor, positions: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> PagedKV:
+    """Write a whole chunk's k/v ([B, Hkv, C, Dh]) at absolute positions
+    ``positions`` [B, C] through the page table, in place, with one
+    scatter per chunk.
 
-    int8 mode is two-speed: when every page's scale already covers the new
-    token, the write is a plain scatter of fresh codes; only a genuine
-    scale growth pays the gather-requantize-scatter round trip.  The
-    choice is read on the host, as the JAX package's ``lax.cond`` takes
-    it."""
+    ``valid`` [B, C] bool sends padding tokens to the garbage page, as in
+    :func:`update`.  bf16 pages get exactly the values a token-by-token
+    scan would write.  int8 pages keep the two-speed semantics at chunk
+    granularity: each page's scale grows to the largest amax among the
+    chunk tokens landing on it (segment max); only a genuine growth pays
+    the requantize, which first rescales each written page's codes by a
+    page-level ratio (so duplicate page ids write identical pages), then
+    lands the chunk's codes quantised against the final scale.  The
+    growth check is read on the host, as the JAX package's ``lax.cond``
+    takes it."""
     ps = pool.page_size
     npp = table.shape[1]
-    pi = torch.clamp(cur_pos.long() // ps, 0, npp - 1)
-    slot = cur_pos.long() % ps
-    page = table[torch.arange(table.shape[0], device=table.device), pi]
-    safe = torch.clamp(page.long(), min=GARBAGE_PAGE)     # -1 -> sink page
+    pos = positions.long()
+    pi = torch.clamp(pos // ps, 0, npp - 1)               # [B, C]
+    slot = pos % ps
+    page = torch.gather(table.long(), 1, pi)              # [B, C]
+    if valid is not None:
+        page = torch.where(valid, page, NO_PAGE)
+    safe = torch.clamp(page, min=GARBAGE_PAGE)
+    # token-major [B, C, Hkv, Dh], the shape of the scatter index
+    kf = k_new.float().transpose(1, 2)
+    vf = v_new.float().transpose(1, 2)
     if not pool.quantized:
         dt = pool.k_pages.dtype
-        pool.k_pages[safe, :, slot] = k_new.to(dt)
-        pool.v_pages[safe, :, slot] = v_new.to(dt)
+        pool.k_pages[safe, :, slot] = kf.to(dt)
+        pool.v_pages[safe, :, slot] = vf.to(dt)
         return pool
-    kf, vf = k_new.float(), v_new.float()
-    k_amax = kf.abs().amax(dim=-1) / 127.0                # [B, Hkv]
+    k_amax = kf.abs().amax(dim=-1) / 127.0                # [B, C, Hkv]
     v_amax = vf.abs().amax(dim=-1) / 127.0
-    old_ks = pool.k_scale[safe]
+    if valid is not None:
+        k_amax = torch.where(valid[..., None], k_amax, 0.0)
+        v_amax = torch.where(valid[..., None], v_amax, 0.0)
+    old_ks = pool.k_scale[safe]                           # [B, C, Hkv]
     old_vs = pool.v_scale[safe]
-    new_ks = torch.maximum(old_ks, k_amax)
-    new_vs = torch.maximum(old_vs, v_amax)
     grow = bool(((k_amax > old_ks) | (v_amax > old_vs)).any())
     if not grow:
         pool.k_pages[safe, :, slot] = _quantize(kf, old_ks)
         pool.v_pages[safe, :, slot] = _quantize(vf, old_vs)
         return pool
-    _write_page_rescale(pool.k_pages, pool.k_scale, kf, new_ks, safe, slot)
-    _write_page_rescale(pool.v_pages, pool.v_scale, vf, new_vs, safe, slot)
+    for pages, scale, old_s, amax, xf in (
+            (pool.k_pages, pool.k_scale, old_ks, k_amax, kf),
+            (pool.v_pages, pool.v_scale, old_vs, v_amax, vf)):
+        new_full = _segment_max(scale, safe, amax)
+        new_s = new_full[safe]                            # [B, C, Hkv]
+        ratio = torch.where(new_s > 0,
+                            old_s / torch.clamp(new_s, min=1e-30), 0.0)
+        pg = torch.round(pages[safe].float() * ratio[..., None, None])
+        pages[safe] = pg.to(torch.int8)
+        pages[safe, :, slot] = _quantize(xf, new_s)
+        scale.copy_(new_full)
     return pool
+
+
+def update(pool: PagedKV, table: torch.Tensor, k_new: torch.Tensor,
+           v_new: torch.Tensor, cur_pos: torch.Tensor,
+           valid: Optional[torch.Tensor] = None) -> PagedKV:
+    """Write one token's k/v ([B, Hkv, Dh]) at absolute position
+    ``cur_pos`` [B] through the page table, in place: the chunk write at
+    C = 1.  ``valid`` [B] bool (optional) redirects invalid rows to the
+    garbage page, and their amax never grows a scale.  On every real page
+    (one writer each) this is the JAX package's per-token ``update``,
+    two-speed int8 included."""
+    return update_chunk(pool, table, k_new[:, :, None], v_new[:, :, None],
+                        cur_pos[:, None],
+                        None if valid is None else valid[:, None])
 
 
 def attention_mask(table: torch.Tensor, cur_pos: torch.Tensor,
@@ -156,6 +182,22 @@ def attention_mask(table: torch.Tensor, cur_pos: torch.Tensor,
     pos = torch.arange(npp * page_size, device=table.device)[None, :]
     alloc = torch.repeat_interleave(table >= 0, page_size, dim=1)
     cur = cur_pos.long()[:, None]
+    ok = alloc & (pos <= cur)
+    if window < 0:
+        return ok
+    return ok & (pos > cur - window)
+
+
+def chunk_attention_mask(table: torch.Tensor, q_pos: torch.Tensor,
+                         window: int, page_size: int) -> torch.Tensor:
+    """[B, C, npp*ps] bool: positions each of C chunk queries (at absolute
+    positions ``q_pos`` [B, C]) may attend to.  The chunk's keys are
+    written before it attends, so plain causality over table-index
+    positions covers the in-chunk keys too."""
+    b, npp = table.shape
+    pos = torch.arange(npp * page_size, device=table.device)[None, None, :]
+    alloc = torch.repeat_interleave(table >= 0, page_size, dim=1)[:, None, :]
+    cur = q_pos.long()[:, :, None]
     ok = alloc & (pos <= cur)
     if window < 0:
         return ok

@@ -11,8 +11,10 @@ admission control and the preemption victim.
   are re-prefilled on re-admission (recompute resume).  The last runner
   is never preempted.
 
-Host-side bookkeeping only.  The JAX package's sjf policy, prefix cache
-and chunked prefill land with later slices of the port.
+``chunk`` is the prefill width: prompt tokens a slot feeds per model call
+(1 = token by token through the decode step).  Host-side bookkeeping
+only.  The JAX package's sjf policy and prefix cache land with a later
+slice of the port.
 """
 from __future__ import annotations
 
@@ -25,18 +27,17 @@ POLICIES = ("fifo",)
 
 @dataclasses.dataclass
 class SchedConfig:
-    """Serving scheduler knobs of this slice: FIFO, one token per call."""
+    """Serving scheduler knobs of the port: FIFO, ``chunk`` prefill tokens
+    per model call."""
     policy: str = "fifo"
-    chunk: int = 1
+    chunk: int = 1                # prefill tokens per model call (1 = off)
 
     def __post_init__(self):
         if self.policy not in POLICIES:
             raise ValueError(f"unknown policy {self.policy!r}; "
                              f"this slice runs {POLICIES}")
-        if self.chunk != 1:
-            raise NotImplementedError(
-                "chunked prefill (chunk > 1) lands with the port's next "
-                "slice, with its kernel")
+        if self.chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {self.chunk}")
 
     @classmethod
     def coerce(cls, val) -> "SchedConfig":

@@ -143,9 +143,3 @@ def test_compress_matches_reference(mode):
     np.testing.assert_allclose(tsfc.dense_equivalent(out).numpy(),
                                jsfc.dense_equivalent(ref), atol=1e-5)
 
-
-def test_later_modes_raise():
-    w = torch.zeros(8, 8)
-    for mode in ("int8", "codebook4"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tsfc.compress(w, mode=mode)
