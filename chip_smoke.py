@@ -5,7 +5,7 @@
 
 Phases, each of which exits non-zero when it fails:
 
-1. build the four CUDA libraries (five kernels) from
+1. build the five CUDA libraries (eight kernels) from
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) and print the
    card (nvidia-smi name, power limit);
 2. K1 (blocked-ACSR SpMV) against its plain version at the seven
@@ -18,15 +18,25 @@ Phases, each of which exits non-zero when it fails:
    bit;
 5. K4 (int8 FC) and K5 (codebook4 FC) against their plain versions at the
    seven projections, M = 4 and 32 rows, with bias and silu;
-6. kernel, plain-version and library times (CUDA events, median, L2
+6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
+   at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
+   (windows, softcaps, non-causal, Hkv 1-8, D 64 / 128, ragged T, f32);
+   a second dkv run must repeat bit for bit;
+7. kernel, plain-version and library times (CUDA events, median, L2
    flushed) beside the least time the card needs for the same work;
-7. the main path: llama3-8b at full width, ``Engine.compress(aida 0.25)``
-   then four requests served at chunk 1 and at chunk 8 (tokens equal up
-   to near-tie flips), with every launch counted;
-8. fresh int8 and codebook4 engines serve the same requests at chunk 8
+8. the serving path: llama3-8b at full width, ``Engine.compress(aida
+   0.25)`` then four requests served at chunk 1 and at chunk 8 (tokens
+   equal up to near-tie flips), with every launch counted;
+9. fresh int8 and codebook4 engines serve the same requests at chunk 8
    through K4 / K5;
-9. a reduced llama3-8b served on the card and on the CPU gives the same
-   greedy tokens (or differs only at a near-tie), in all three modes.
+10. the training path: llama3-8b at full width, depth cut to 4 layers,
+    ``trainer.run(attn_impl="flash")`` for 4 steps on 2 x 2048 tokens
+    through K7 / K8 (exact launch counts, finite and falling loss), then
+    one profiled step;
+11. a reduced llama3-8b served on the card and on the CPU gives the same
+    greedy tokens (or differs only at a near-tie), in all three modes, and
+    trained 3 steps on both from the same state gives the same losses
+    within 1e-2.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
@@ -55,7 +65,14 @@ KERNELS = [                        # (name, csrc file, TPU kernel replaced)
      "src/repro/kvstore/paged_attention.py:279"),
     ("int8_matmul", "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:27"),
     ("lut_matmul", "lut_matmul.cu", "src/repro/kernels/lut_matmul.py:41"),
+    ("flash_attention_fwd", "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:49"),
+    ("flash_attention_dq", "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:128"),
+    ("flash_attention_dkv", "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:163"),
 ]
+FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 PROJECTIONS = [                    # llama3-8b: (name, n_out, n_in)
     ("wq", 4096, 4096), ("wk", 1024, 4096), ("wv", 1024, 4096),
     ("wo", 4096, 4096), ("gate", 14336, 4096), ("up", 14336, 4096),
@@ -444,6 +461,166 @@ def fc_phase(dev, flush):
     return errs, tot
 
 
+# ---------------------------------------------------------------- K7, K8
+# (hkv, d, t, dtype, causal, window, softcap) at B = 2, H = 32; the first
+# is the training path's shape (llama3-8b, 2 x 2048 tokens)
+FLASH_CASES = [
+    (8, 128, 2048, "bf16", True, None, None),
+    (8, 128, 512, "bf16", True, 64, None),
+    (8, 128, 512, "bf16", True, 128, 30.0),
+    (4, 64, 512, "f32", True, None, 50.0),
+    (2, 64, 512, "f32", False, None, None),
+    (1, 128, 300, "f32", True, None, None),
+    (2, 64, 333, "bf16", False, 64, 30.0),
+    (8, 64, 1000, "f32", True, 128, None),
+    (4, 128, 2048, "bf16", False, None, None),
+]
+# kernel vs plain version: both f32 over the same (bf16-exact) inputs,
+# summed in another order (tiles vs whole rows; dk / dv over G * T rows)
+FLASH_TOL = {"o": 1e-4, "lse": 1e-4, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}
+
+
+def _flash_inputs(dev, gen, hkv, d, t, dtype, b=2, h=32):
+    import torch
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+    q = rnd((b, h, t, d), 0.3)
+    k = rnd((b, hkv, t, d), 0.3)
+    v = rnd((b, hkv, t, d), 1.0)
+    do = torch.randn((b, h, t, d), generator=gen, device=dev)
+    return q, k, v, do
+
+
+def flash_phase(dev, flush):
+    """K7 and K8 against their plain versions over FLASH_CASES, dkv twice
+    (bit-identical), then times at the training shape.  Returns the max
+    errors and the timing rows by kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = dict.fromkeys(FLASH_TOL, 0.0)
+    for hkv, d, t, dtype, causal, window, cap in FLASH_CASES:
+        q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, dtype)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+        dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash B=2 H=32 Hkv={hkv} D={d} T={t} {dtype} "
+                f"causal={causal} window={window} softcap={cap}")
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"{what}: dkv differs on rerun")
+        po, plse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        want = {"o": po, "lse": plse,
+                "dq": ref.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                                 **kw)}
+        want["dk"], want["dv"] = ref.flash_attention_dkv_ref(
+            q, k, v, do, lse, delta, **kw)
+        line = []
+        for name, tol in FLASH_TOL.items():
+            err = check_close(f"{what} {name}", got[name], want[name], tol,
+                              tol)
+            errs[name] = max(errs[name], err)
+            line.append(f"{name} {err:.2e}")
+        log(f"{what}: max abs err " + ", ".join(line) + "; max abs "
+            + ", ".join(f"{n} {float(x.abs().max()):.3g}"
+                        for n, x in got.items()))
+        if (hkv, d, t, causal, window, cap) == (8, 128, 2048, True, None,
+                                                None):
+            _sdpa_check(q, k, v, do, got)
+        del q, k, v, do, o, lse, dq, dk, dv, dk2, dv2, po, plse, got, want
+    log(f"K7/K8 {len(FLASH_CASES)} cases agree (tolerance rtol = atol: "
+        + ", ".join(f"{k} {v:g}" for k, v in FLASH_TOL.items())
+        + "); dkv bit-identical on rerun in every case")
+    return errs, flash_times(dev, flush)
+
+
+def _sdpa_check(q, k, v, do, got):
+    """An oracle independent of the port: PyTorch's attention and its
+    autograd on the same inputs in f32 (same math, a third summation
+    order), within the kernel-vs-plain tolerances."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qq, kk, vv = (x.float().requires_grad_(True) for x in (q, k, v))
+    o = sdpa(qq, kk, vv, is_causal=True, enable_gqa=True)
+    grads = torch.autograd.grad(o, (qq, kk, vv), do)
+    errs = []
+    for name, want in zip(("o", "dq", "dk", "dv"), (o.detach(), *grads)):
+        tol = FLASH_TOL[name]
+        err = check_close(f"SDPA {name}", got[name], want, tol, tol)
+        errs.append(f"{name} {err:.2e}")
+    log("flash vs SDPA (f32, autograd): max abs err " + ", ".join(errs))
+
+
+def flash_times(dev, flush):
+    """Kernel, plain-version and SDPA times at the training shape with the
+    least time the card needs: bytes (inputs read once, outputs written
+    once) over 3.35 TB/s vs the causal pairs' multiply-adds over the bf16
+    peak (the inputs are bf16).  Forward 4 flops per (pair, dim): q.k and
+    p.v; dq 6 (q.k, do.v, ds.k); dkv 8 (q.k, do.v, p.do, ds.q)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hkv, d, t = 8, 128, 2048
+    q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, "bf16")
+    b, h = q.shape[:2]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    pairs = b * h * t * (t + 1) // 2
+    qkv = (q.numel() + 2 * k.numel()) * 2
+    rows_f32 = b * h * t * 4                        # lse or delta
+    work = {
+        "flash_attention_fwd": (qkv + q.numel() * 4 + rows_f32,
+                                4 * pairs * d),
+        "flash_attention_dq": (qkv + 2 * q.numel() * 4 + 2 * rows_f32,
+                               6 * pairs * d),
+        "flash_attention_dkv": (qkv + q.numel() * 4 + 2 * rows_f32
+                                + 2 * k.numel() * 4, 8 * pairs * d),
+    }
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v),
+            lambda: ref.flash_attention_fwd_ref(q, k, v)),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+            lambda: ref.flash_attention_dq_ref(q, k, v, do, lse, delta)),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
+            lambda: ref.flash_attention_dkv_ref(q, k, v, do, lse, delta)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+    ldo = do.to(torch.bfloat16)
+    t_lf, _ = median_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=True), flush=flush)
+    t_lb, _ = median_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), ldo, retain_graph=True), flush=flush)
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        bms, by = bound(*work[name], BF16_FLOPS)
+        t_k, host = median_ms(kern, flush=flush)
+        t_p, _ = median_ms(plain, iters=5, flush=flush)
+        fwd = name == "flash_attention_fwd"
+        t_l = t_lf if fwd else t_lb
+        log(f"{name} B={b} H={h} Hkv={hkv} T={t} D={d} bf16 causal "
+            f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+            f"({'SDPA forward' if fwd else 'SDPA backward'}) "
+            f"bound_ms={bms:.4f} ({by}) "
+            f"tflops={work[name][1] / t_k / 1e9:.2f} "
+            f"host_enqueue_ms={host:.4f}")
+        rows[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
+                      "bound_by": by, "library_ms": t_l}
+    return rows
+
+
 # --------------------------------------------------------------- serve
 def _llama(layers):
     import dataclasses
@@ -456,7 +633,8 @@ def _llama(layers):
 
 
 def _launch_counters():
-    """The five kernel wrappers, by the name the kernels line gives them."""
+    """The eight kernel wrappers, by the name the kernels line gives them."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.acsr_spmv import acsr_spmv
     from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.kernels.lut_matmul import lut_matmul
@@ -464,7 +642,8 @@ def _launch_counters():
                                                      paged_attention_chunk)
     return {"acsr_spmv": acsr_spmv, "paged_attention_decode": paged_attention,
             "paged_attention_chunk": paged_attention_chunk,
-            "int8_matmul": int8_matmul, "lut_matmul": lut_matmul}
+            "int8_matmul": int8_matmul, "lut_matmul": lut_matmul,
+            **{name: getattr(fa, name) for name in FLASH}}
 
 
 def _compressed_engine(dev, cfg, spec, label):
@@ -646,6 +825,147 @@ def trace_serve(eng, chunk):
         ", ".join(f"{k} {v / steps:.3f}" for k, v in fam.items()))
 
 
+# --------------------------------------------------------------- train
+TRAIN_LAYERS = 4      # of llama3-8b's 32: f32 params, grads and moments
+TRAIN_STEPS = 4       # take 16 B a parameter
+
+
+def _train_config():
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+    # no warmup, so that 4 steps move the loss.  At d_model 4096 AdamW's
+    # first step moves every weight by about lr: from 12.09, lr 1e-4 and
+    # 3e-4 overshoot (16.1 and 17.6 at step 1), 2e-5 falls every step
+    return TrainConfig(attn_impl="flash", remat="dots",
+                       opt=AdamWConfig(lr=2e-5, warmup_steps=1))
+
+
+def train_phase(dev, layers):
+    """The training path at llama3-8b's full width: ``trainer.run`` with
+    ``attn_impl="flash"`` over 2 x 2048-token batches, every launch count
+    set to 0 just before and read just after.  Checks a finite loss that
+    falls, and K7 = dq = dkv = layers x steps launches (one microbatch, no
+    recompute).  Returns the launch counts."""
+    import gc
+    import re
+
+    import torch
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    from repro_torch.train import trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _llama(layers)
+    tc = _train_config()
+    it = DataIterator(cfg, PipelineConfig(seed=0, global_batch=2,
+                                          seq_len=2048))
+    steps = []
+
+    def record(line):
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"train: {line} peak {peak:.2f} GiB")
+        steps.append((float(re.search(r"loss=(\S+)", line).group(1)),
+                      float(re.search(r"(\d+)ms$", line).group(1))))
+
+    fns = _launch_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state = trainer.run(cfg, tc, it, TRAIN_STEPS, log_every=1, log=record,
+                        device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    want = dict.fromkeys(fns, 0)
+    want.update(dict.fromkeys(FLASH, cfg.n_layers * TRAIN_STEPS))
+    losses = [loss for loss, _ in steps]
+    log(f"train llama3-8b d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"B=2 T=2048: {TRAIN_STEPS} steps in {wall:.2f} s (init included), "
+        f"ms/step {[ms for _, ms in steps]}, losses {losses}, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    log(f"train: launches {json.dumps(counts)} (expected "
+        f"{json.dumps(want)})")
+    if counts != want:
+        raise AssertionError("the training path did not go through K7 / K8 "
+                             "once per layer and step")
+    if len(losses) != TRAIN_STEPS or not all(
+            x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall {losses}")
+    trace_train(dev, cfg, tc, state, it)
+    return counts
+
+
+def trace_train(dev, cfg, tc, state, it):
+    """Device time by kernel family over one more training step, from
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import trainer
+    step = trainer.make_train_step(cfg, tc)
+    batch = {k: torch.as_tensor(np.asarray(x), device=dev)
+             for k, x in next(it).items()}
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("trace train: the profiler saw no device events (not measured)")
+        return
+    fam = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0, "gemm": 0.0,
+           "other": 0.0}
+    for e in kernels:
+        name = e.name.lower()
+        key = next((f for f in ("flash_fwd", "flash_dq", "flash_dkv")
+                    if f in name), None)
+        if key is None:
+            key = "gemm" if ("gemm" in name or "sm90" in name
+                             or "cutlass" in name) else "other"
+        fam[key] += e.time_range.elapsed_us() / 1e3
+    busy = sum(fam.values())
+    log(f"trace train step: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}% of wall), {len(kernels)} kernels; ms by "
+        "family: " + ", ".join(f"{k} {v:.2f}" for k, v in fam.items()))
+
+
+def train_cross_check(dev):
+    """A reduced llama3-8b (D = 32) trained 3 steps through the flash path
+    on the card and on the CPU from the same state and batches: per-step
+    losses within 1e-2 (both round to bf16 at the same places; the CPU
+    port itself is held within 2e-3 of the JAX package)."""
+    import torch
+    from repro_torch import bridge, get, reduced
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    from repro_torch.train import trainer
+    cfg = reduced(get("llama3-8b"))
+    tc = _train_config()
+    init = trainer.init_state(cfg, torch.Generator().manual_seed(0))
+    # a copy for the card first: the CPU run then updates ``init`` in place
+    states = {"cuda": bridge.to_device(init, dev), "cpu": init}
+    losses = {}
+    for name, state in states.items():
+        lines = []
+        trainer.run(cfg, tc, DataIterator(cfg, PipelineConfig(
+            seed=1, global_batch=2, seq_len=256)), 3, state=state,
+            log_every=1, log=lines.append,
+            device=dev if name == "cuda" else "cpu")
+        losses[name] = [float(ln.split("loss=")[1].split()[0])
+                        for ln in lines]
+    diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    log(f"cross-check: reduced llama3-8b flash training, losses cpu "
+        f"{losses['cpu']} cuda {losses['cuda']}, max diff {diff:.2e}")
+    if diff > 1e-2:
+        raise AssertionError("card and CPU training losses disagree")
+
+
 def cross_check(dev):
     """A reduced llama3-8b served on the card and on the CPU from the same
     weights gives the same greedy tokens (or differs only at a near-tie):
@@ -723,13 +1043,22 @@ def main(argv=None) -> int:
     for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
         errs[name] = fc_errs[mode]
         times[name] = {m: fc_times[(mode, m)] for m in (4, 32)}
+    flash_errs, flash_rows = flash_phase(dev, flush)
+    times.update(flash_rows)
+    errs["flash_attention_fwd"] = max(flash_errs["o"], flash_errs["lse"])
+    errs["flash_attention_dq"] = flash_errs["dq"]
+    errs["flash_attention_dkv"] = max(flash_errs["dk"], flash_errs["dv"])
     del flush
     layers = args.layers or 32
     launches, by_rows = serve_phase(dev, layers)
     by_rows = {"acsr_spmv": by_rows, **fc_mode_serves(dev, layers)}
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())
     launches["lut_matmul"] = sum(by_rows["lut_matmul"].values())
+    train_counts = train_phase(dev, TRAIN_LAYERS)
+    for name in FLASH:
+        launches[name] = train_counts[name]
     cross_check(dev)
+    train_cross_check(dev)
     kernels = []
     for name, source, replaces in KERNELS:
         row = {"name": name, "route": "cuda",

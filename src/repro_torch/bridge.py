@@ -8,8 +8,9 @@ containers by their field names and never imports the reference.
 Covered: raw param dicts, ``CompressedFC`` in all five modes (int8's
 ``QTensor`` codes and scales, codebook4's packed codes and centroids),
 stacked or single ``BlockedACSR`` (int16 or int32 col_idx, uint8 codes or
-f32 / bf16 values, [L, 16] centroids) and the paged decode state
-(``PagedKV`` pools, ``pos``, ``page_table``).
+f32 / bf16 values, [L, 16] centroids), the paged decode state
+(``PagedKV`` pools, ``pos``, ``page_table``) and the training state
+(``TrainState(params, OptState(step, m, v))``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.core.quant import QTensor
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.kernels.acsr_spmv import BlockedACSR
 from repro_torch.kvstore.pool import PagedKV
+from repro_torch.optim.adamw import OptState
+from repro_torch.train.trainer import TrainState
 
 
 def tensor(a, device=None) -> torch.Tensor:
@@ -56,13 +59,19 @@ def _compressed(c, device) -> CompressedFC:
 
 
 def from_reference(tree: Any, device=None) -> Any:
-    """Convert a numpy-leaved reference tree (params or paged decode
-    state) into the port's containers on ``device``."""
+    """Convert a numpy-leaved reference tree (params, paged decode state
+    or training state) into the port's containers on ``device``."""
     name = type(tree).__name__
     if name == "CompressedFC":
         return _compressed(tree, device)
     if name == "BlockedACSR":
         return _blocked(tree, device)
+    if name == "TrainState":
+        return TrainState(from_reference(tree.params, device),
+                          from_reference(tree.opt, device))
+    if name == "OptState":
+        return OptState(*(from_reference(a, device)
+                          for a in (tree.step, tree.m, tree.v)))
     if name == "PagedKV":
         return PagedKV(*(None if a is None else tensor(a, device)
                          for a in (tree.k_pages, tree.v_pages, tree.k_scale,
@@ -75,7 +84,8 @@ def from_reference(tree: Any, device=None) -> Any:
 
 
 def to_device(tree: Any, device) -> Any:
-    """Move a port param / state tree to ``device``."""
+    """Move a port param, decode-state or training-state tree to
+    ``device``."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, CompressedFC):
@@ -94,8 +104,8 @@ def to_device(tree: Any, device) -> Any:
                            to_device(tree.row_nnz, device), tree.shape,
                            tree.block_rows, tree.nnz,
                            to_device(tree.centroids, device))
-    if isinstance(tree, PagedKV):
-        return PagedKV(*(to_device(a, device) for a in tree))
+    if isinstance(tree, (PagedKV, OptState, TrainState)):
+        return type(tree)(*(to_device(a, device) for a in tree))
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     return tree

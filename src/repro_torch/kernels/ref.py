@@ -110,3 +110,130 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                      k_scale, v_scale, table,
                                      cur_pos[:, None], window, scale,
                                      cap)[:, :, 0]
+
+
+# ------------------------------------------------------ flash attention
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Masked softmax attention, the oracle of the JAX package's
+    ``kernels/ref.py``: q [B, H, Tq, D], k/v [B, Hkv, Tk, D] (k/v repeated
+    over the query group) -> [B, H, Tq, D] f32; the query positions are
+    aligned to the end of the keys."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scale = (d ** -0.5) if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = _attention_mask(tq, tk, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                        v.float())
+
+
+def _attention_mask(tq: int, tk: int, causal: bool, window: Optional[int],
+                    device) -> torch.Tensor:
+    qi = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    return mask
+
+
+def _flash_scores(q, k, causal, window, softcap, scale):
+    """Scores of the flash kernels, GQA by folding the query group:
+    s [B, Hkv, G, T, T] f32 (scaled, then soft-capped, not masked) and the
+    [T, T] mask."""
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    qg = q.float().reshape(b, hkv, h // hkv, t, d)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s, _attention_mask(t, t, causal, window, q.device)
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            scale: Optional[float] = None):
+    """K7's arithmetic untiled: f32 scores scaled then soft-capped, masked
+    to the finite -1e30 (causal ``ki <= qi``, window ``ki > qi - window``),
+    ``o = (exp(s - m) @ v) / max(l, 1e-30)`` and ``lse = m + log(max(l,
+    1e-30))``.  q [B, H, T, D], k/v [B, Hkv, T, D] -> (o [B, H, T, D] f32,
+    lse [B, H, T, 1] f32)."""
+    b, h, t, d = q.shape
+    scale = (d ** -0.5) if scale is None else scale
+    s, mask = _flash_scores(q, k, causal, window, softcap, scale)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float()) / l
+    return o.reshape(b, h, t, d), (m + torch.log(l)).reshape(b, h, t, 1)
+
+
+def _flash_grad_terms(q, k, v, do, lse, delta, causal, window, softcap,
+                      scale):
+    """p = exp(masked s - lse) and ds = p * (do @ v.T - delta), times the
+    softcap's derivative ``1 - (s / cap)**2`` when capped; [B, Hkv, G, T,
+    T] f32 each."""
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    s, mask = _flash_scores(q, k, causal, window, softcap, scale)
+    p = torch.exp(torch.where(mask, s, NEG_INF)
+                  - lse.float().reshape(b, hkv, g, t, 1))
+    dp = torch.einsum("bkgqd,bkcd->bkgqc",
+                      do.float().reshape(b, hkv, g, t, d), v.float())
+    ds = p * (dp - delta.float().reshape(b, hkv, g, t, 1))
+    if softcap is not None:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    return p, ds
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, causal=True,
+                           window=None, softcap=None, scale=None):
+    """K8's dq untiled: ``ds @ k * scale`` -> [B, H, T, D] f32."""
+    b, h, t, d = q.shape
+    scale = (d ** -0.5) if scale is None else scale
+    _, ds = _flash_grad_terms(q, k, v, do, lse, delta, causal, window,
+                              softcap, scale)
+    return torch.einsum("bkgqc,bkcd->bkgqd", ds,
+                        k.float()).reshape(b, h, t, d) * scale
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, causal=True,
+                            window=None, softcap=None, scale=None):
+    """K8's dk / dv untiled, each summed over the query group:
+    ``dk = ds.T @ q * scale``, ``dv = p.T @ do`` -> [B, Hkv, T, D] f32."""
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    p, ds = _flash_grad_terms(q, k, v, do, lse, delta, causal, window,
+                              softcap, scale)
+    qg = q.float().reshape(b, hkv, g, t, d)
+    dog = do.float().reshape(b, hkv, g, t, d)
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qg) * scale
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dog)
+    return dk, dv
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None,
+                            softcap=None, scale=None):
+    """The recompute backward untiled, with ``delta = rowsum(do * o)``:
+    -> (dq [B, H, T, D], dk, dv [B, Hkv, T, D]) f32."""
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    dq = flash_attention_dq_ref(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_attention_dkv_ref(q, k, v, do, lse, delta, **kw))

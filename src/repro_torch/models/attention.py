@@ -1,4 +1,5 @@
-"""GQA attention for one-token decode against the paged KV pool."""
+"""GQA attention: training / prefill self-attention (einsum, chunked or
+flash) and one-token decode against the paged KV pool."""
 from __future__ import annotations
 
 from typing import Optional
@@ -6,8 +7,10 @@ from typing import Optional
 import torch
 
 from repro_torch import kvstore as kvs
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (COMPUTE_DTYPE, dense, dense_init,
-                                       rope)
+                                       rope, softcap)
 
 
 def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -46,6 +49,80 @@ def _qkv(p, x, n_heads, n_kv, d_head, positions, theta):
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
     return q, k, v
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 and held in f32: an f32 product of such operands
+    is the JAX package's bf16 product with f32 accumulation."""
+    return x.to(COMPUTE_DTYPE).float()
+
+
+def _core(q, k, v, mask, cap: Optional[float], scale: float):
+    """Masked softmax attention with the query heads grouped [B, Hkv, G,
+    T, D] (k / v never repeated): bf16 operands, f32 scores and softmax,
+    p rounded to bf16 for ``p @ v`` and the output in bf16, as in the JAX
+    package.  mask [Tq, Tk] (or broadcastable to [B, Hkv, G, Tq, Tk])."""
+    b, h, tq, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, tq, d)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", _bf16(qg), _bf16(k)) * scale
+    s = softcap(s, cap)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", _bf16(p), _bf16(v))
+    return o.to(COMPUTE_DTYPE).reshape(b, h, tq, d)
+
+
+def _chunked_core(q, k, v, window: int, causal: bool, cap, scale,
+                  chunk: int):
+    """:func:`_core` over query chunks of ``chunk`` rows: O(T * chunk)
+    scores live at a time instead of O(T^2)."""
+    t = q.shape[2]
+    chunk = min(chunk, t)
+    if t % chunk:
+        raise ValueError(f"sequence {t} is not a multiple of chunk {chunk}")
+    ki = torch.arange(t, device=q.device)[None, :]
+    outs = []
+    for c0 in range(0, t, chunk):
+        qi = torch.arange(c0, c0 + chunk, device=q.device)[:, None]
+        m = torch.ones((chunk, t), dtype=torch.bool, device=q.device)
+        if causal:
+            m = m & (ki <= qi)
+        if window >= 0:
+            m = m & (ki > qi - window)
+        outs.append(_core(q[:, :, c0:c0 + chunk], k, v, m, cap, scale))
+    return torch.cat(outs, dim=2)
+
+
+def attn_apply(p, x, positions, *, n_heads: int, n_kv: int, d_head: int,
+               window: int, causal: bool = True, cap: Optional[float] = None,
+               theta: Optional[float] = 10000.0,
+               scale: Optional[float] = None, impl: str = "einsum",
+               chunk: int = 512) -> torch.Tensor:
+    """Training / prefill self-attention, x [B, T, D] -> [B, T, D] bf16.
+    ``window`` is the layer's static int (-1 = full).  ``impl``:
+    "einsum" (one masked softmax), "chunked" (over query chunks) or
+    "flash" (K7 forward, K8 backward)."""
+    scale = (d_head ** -0.5) if scale is None else scale
+    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, positions, theta)
+    t = x.shape[1]
+    if impl == "flash":
+        o = ops.attention(q, k, v, causal=causal,
+                          window=None if window < 0 else int(window),
+                          softcap=cap, scale=scale, impl="flash")
+    elif impl == "chunked":
+        o = _chunked_core(q, k, v, window, causal, cap, scale, chunk)
+    elif impl == "einsum":
+        qi = torch.arange(t, device=x.device)[:, None]
+        ki = torch.arange(t, device=x.device)[None, :]
+        mask = torch.ones((t, t), dtype=torch.bool, device=x.device)
+        if causal:
+            mask = mask & (ki <= qi)
+        mask = mask & ((window < 0) | (ki > qi - window))
+        o = _core(q, k, v, mask, cap, scale)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"])
 
 
 def decode_attend_paged(pool: kvs.PagedKV, table, q, k, v, cur_pos, *,

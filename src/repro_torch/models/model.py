@@ -1,4 +1,5 @@
-"""Top-level model API of the port: init, paged decode state, decode step."""
+"""Top-level model API of the port: init, forward and loss for training,
+paged decode state and decode step."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -7,10 +8,12 @@ import torch
 
 from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (_bf16_matmul, dense_init, embed,
-                                       embed_init, rms_norm, rms_norm_init,
-                                       softcap, unembed)
+from repro_torch.models.layers import (COMPUTE_DTYPE, _bf16_matmul,
+                                       dense_init, embed, embed_init,
+                                       rms_norm, rms_norm_init, softcap,
+                                       unembed)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict:
@@ -22,6 +25,100 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_padded)
     return p
+
+
+def forward(cfg: ArchConfig, params: Dict, batch: Dict, *,
+            remat: str = "dots", attn_impl: str = "einsum",
+            return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch {"tokens": [B, S]} -> (logits [B, S, Vpad] f32, aux), or the
+    final-normed hidden state [B, S, D] bf16 with ``return_hidden``."""
+    if cfg.frontend is not None or not cfg.causal:
+        raise NotImplementedError(f"{cfg.name}: the port trains causal "
+                                  "token models so far")
+    x = embed(batch["tokens"], params["embed"])
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x, aux = tfm.stack_forward(cfg, params["layers"], x, positions,
+                               remat=remat, attn_impl=attn_impl)
+    x = rms_norm(x, params["final_norm"])
+    if return_hidden:
+        return x, aux
+    if cfg.tie_embeddings:
+        logits = unembed(x, params["embed"])
+    else:
+        logits = _bf16_matmul(x, params["lm_head"])
+    return softcap(logits, cfg.final_softcap), aux
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         vocab: int) -> torch.Tensor:
+    """Per-position -log softmax(logits)[label] with the padded vocab
+    columns (vocab..Vpad) out of the logsumexp.  The JAX package picks the
+    label's logit by a one-hot contraction; every other term of that sum
+    is an exact zero, so a gather gives the same value."""
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(col < vocab, logits, NEG_INF)
+    lmax = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - lmax
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + lmax[..., 0]
+    picked = shifted.gather(-1, labels.long()[..., None])[..., 0] + \
+        lmax[..., 0]
+    return lse - picked
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+          vocab: int) -> torch.Tensor:
+    """Mean cross-entropy over the positions where mask is 1."""
+    nll = _nll(logits, labels, vocab) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _xent_streamed(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor,
+                   chunk: int = 512) -> torch.Tensor:
+    """:func:`_xent` over sequence chunks of the hidden state: only [B,
+    chunk, Vpad] logits exist at a time.  The sequence is padded to a
+    chunk multiple, the padded positions masked out."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    table = params["embed"]["table"].T if cfg.tie_embeddings \
+        else params["lm_head"]
+    nll = []
+    for c0 in range(0, s + pad, chunk):
+        lg = softcap(_bf16_matmul(x[:, c0:c0 + chunk], table),
+                     cfg.final_softcap)
+        nll.append(_nll(lg, labels[:, c0:c0 + chunk], cfg.vocab))
+    return (torch.cat(nll, dim=1) * mask).sum() / \
+        torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
+            remat: str = "dots", attn_impl: str = "einsum",
+            streamed_loss: bool = False,
+            loss_chunk: int = 512) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy + 0.01 * aux -> (loss, {"ce", "aux"}).
+    Labels are the tokens shifted by one; negative labels are masked."""
+    tokens = batch["tokens"]
+    labels = tokens[:, 1:]
+    mask = (labels >= 0).float()
+    labels = torch.clamp(labels, min=0)
+    if streamed_loss:
+        x, aux = forward(cfg, params, batch, remat=remat,
+                         attn_impl=attn_impl, return_hidden=True)
+        ce = _xent_streamed(cfg, params, x[:, :-1], labels, mask,
+                            chunk=loss_chunk)
+    else:
+        logits, aux = forward(cfg, params, batch, remat=remat,
+                              attn_impl=attn_impl)
+        ce = _xent(logits[:, :-1], labels, mask, cfg.vocab)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,

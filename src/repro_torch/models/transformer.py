@@ -1,20 +1,24 @@
-"""Dense-family block and the layer stack for paged decode.
+"""Dense-family block and the layer stack, for training / prefill and for
+paged decode.
 
 Params and decode state are stacked over layers ([L, ...]); the JAX
 package's scan over layers is a Python loop over layer views (indexing,
-no copies).
+no copies), so each layer's attention window is a static int.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import mlp, mlp_init, rms_norm, rms_norm_init
+
+REMAT = ("none", "dots", "full")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -75,6 +79,50 @@ def _attn_kwargs(cfg: ArchConfig):
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                 cap=cfg.attn_softcap, theta=cfg.rope_theta,
                 scale=cfg.attn_scale)
+
+
+def unstack(tree, n: int):
+    """The ``n`` layers of a stacked raw-param tree as a list of trees of
+    views; under autograd each leaf's gradient comes back as one stacked
+    tensor (``unbind``), not as ``n`` full-size scatters."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def block_forward(cfg: ArchConfig, p: Dict, x, positions, window: int,
+                  attn_impl: str = "einsum"):
+    """One layer, training / prefill, x [B, T, D] bf16 -> (x, aux); aux is
+    0 for the dense family."""
+    _check_family(cfg)
+    h = attn.attn_apply(p["attn"], rms_norm(x, p["ln1"]), positions,
+                        window=window, causal=cfg.causal, impl=attn_impl,
+                        **_attn_kwargs(cfg))
+    x = x + h
+    h = mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
+    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
+                  remat: str = "dots", attn_impl: str = "einsum"):
+    """Every layer in turn -> (x, total aux).  ``remat="full"`` recomputes
+    each layer in the backward (``torch.utils.checkpoint``); "dots" and
+    "none" keep every activation (the JAX package's "dots" keeps only the
+    matmul outputs: same numbers, less memory there)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    windows = cfg.layer_windows()
+    for p, window in zip(unstack(stacked, len(windows)), windows):
+        if remat == "full":
+            x, a = checkpoint(
+                block_forward, cfg, p, x, positions, window, attn_impl,
+                use_reentrant=False)
+        else:
+            x, a = block_forward(cfg, p, x, positions, window, attn_impl)
+        aux = aux + a
+    return x, aux
 
 
 def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,

@@ -1,0 +1,1 @@
+"""Optimizer of the port: AdamW with global-norm clipping."""

@@ -18,6 +18,11 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch, repro_torch.bridge, chip_smoke\n"
         "from repro_torch.api import engine, session, compress\n"
         "from repro_torch.models import model\n"
+        "from repro_torch.train import trainer\n"
+        "from repro_torch.optim import adamw\n"
+        "from repro_torch.data import pipeline\n"
+        "from repro_torch.runtime import compression, fault_tolerance\n"
+        "from repro_torch.kernels import ops, flash_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
