@@ -5,7 +5,7 @@
 
 Phases, each of which exits non-zero when it fails:
 
-1. build the five CUDA libraries (eight kernels) from
+1. build the seven CUDA libraries (ten kernels) from
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) and print the
    card (nvidia-smi name, power limit);
 2. K1 (blocked-ACSR SpMV) against its plain version at the seven
@@ -22,21 +22,38 @@ Phases, each of which exits non-zero when it fails:
    at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
    (windows, softcaps, non-causal, Hkv 1-8, D 64 / 128, ragged T, f32);
    a second dkv run must repeat bit for bit;
-7. kernel, plain-version and library times (CUDA events, median, L2
+7. K9 (the rwkv6 WKV scan) against its plain version at rwkv6-7b's
+   forward shape (B=2, H=64, T=2048, 64 x 64 state, bf16 r / k / v read
+   through strided head views), the reference's test shapes, its
+   tiny-decay case, a ragged T and Dk 128 / Dv 256; K6 (the fully-coded
+   LUT product) at the seven llama3-8b projections, B = 4 and 32, with
+   the reference's two tables, ragged B / N / K / nc and an integer table
+   (exact), plus its entry point's launch count;
+8. kernel, plain-version and library times (CUDA events, median, L2
    flushed) beside the least time the card needs for the same work;
-8. the serving path: llama3-8b at full width, ``Engine.compress(aida
+9. the serving path: llama3-8b at full width, ``Engine.compress(aida
    0.25)`` then four requests served at chunk 1 and at chunk 8 (tokens
    equal up to near-tie flips), with every launch counted;
-9. fresh int8 and codebook4 engines serve the same requests at chunk 8
-   through K4 / K5;
-10. the training path: llama3-8b at full width, depth cut to 4 layers,
+10. fresh int8 and codebook4 engines serve the same requests at chunk 8
+    through K4 / K5;
+11. the training path: llama3-8b at full width, depth cut to 4 layers,
     ``trainer.run(attn_impl="flash")`` for 4 steps on 2 x 2048 tokens
     through K7 / K8 (exact launch counts, finite and falling loss), then
     one profiled step;
-11. a reduced llama3-8b served on the card and on the CPU gives the same
+12. a reduced llama3-8b served on the card and on the CPU gives the same
     greedy tokens (or differs only at a near-tie), in all three modes, and
     trained 3 steps on both from the same state gives the same losses
-    within 1e-2.
+    within 1e-2;
+13. rwkv6-7b at full width, all 32 layers: ``forward`` over 2 x 2048
+    tokens (one K9 launch per layer, finite logits), equal to
+    ``decode_step`` fed the first 32 tokens one at a time within the
+    stated limits one layer deep (random weights amplify rounding
+    differences with depth; the 32-layer gap is logged beside the
+    forward's own), which three faults planted in the decode's WKV
+    exceed, then ``Engine.compress(aida 0.25).serve`` of the
+    four requests through K1 (8 launches per layer and step), then a
+    reduced rwkv6-7b served on the card and on the CPU (same greedy
+    tokens up to near-tie flips).
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
@@ -45,6 +62,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -57,6 +75,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
+# shared-memory loads of 4 bytes: 132 SMs x 32 banks a clock x 1.98 GHz
+# (H100 SXM boost clock); bounds K6's table look-ups
+SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
 KERNELS = [                        # (name, csrc file, TPU kernel replaced)
     ("acsr_spmv", "acsr_spmv.cu", "src/repro/kernels/acsr_spmv.py:160"),
     ("paged_attention_decode", "paged_attention.cu",
@@ -71,6 +92,9 @@ KERNELS = [                        # (name, csrc file, TPU kernel replaced)
      "src/repro/kernels/flash_attention.py:128"),
     ("flash_attention_dkv", "flash_attention.cu",
      "src/repro/kernels/flash_attention.py:163"),
+    ("rwkv6_scan", "linear_scan.cu", "src/repro/kernels/linear_scan.py:28"),
+    ("lut_product_matmul", "lut_product.cu",
+     "src/repro/kernels/lut_matmul.py:126"),
 ]
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 PROJECTIONS = [                    # llama3-8b: (name, n_out, n_in)
@@ -621,6 +645,215 @@ def flash_times(dev, flush):
     return rows
 
 
+# ------------------------------------------------------------------ K9
+# (B, H, T, Dk, Dv, r / k / v type, impl, chunk, tiny decay): the first is
+# rwkv6-7b's forward shape (2 x 2048 tokens, 64 heads of 64, read through
+# the model's strided head views); then the reference's own kernel test
+# shapes, its tiny-decay case, a ragged T under impl="scan" and the widest
+# head the kernel takes
+K9_CASES = [
+    (2, 64, 2048, 64, 64, "bf16", "scan", 64, False),
+    (2, 2, 128, 16, 16, "f32", "kernel", 32, False),
+    (2, 2, 64, 32, 64, "f32", "kernel", 64, False),
+    (2, 2, 96, 8, 8, "f32", "kernel", 16, False),
+    (1, 1, 64, 8, 8, "f32", "kernel", 16, True),
+    (2, 64, 300, 64, 64, "bf16", "scan", 64, False),
+    (1, 2, 100, 128, 256, "f32", "scan", 64, False),
+]
+
+
+def _k9_inputs(dev, gen, b, h, t, dk, dv, dtype, tiny):
+    """r, k, w as [B, H, T, Dk] head views of [B, T, H * Dk] tensors (the
+    layout the model hands over), v likewise, w = exp(-exp(N(0, 1))) in
+    (0, 1) f32, u [H, Dk] f32; the tiny case is the reference's: r = k =
+    0.1, v = 1, w = 1e-9, u = 0."""
+    import torch
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def heads(d, scale):
+        x = torch.randn((b, t, h * d), generator=gen, device=dev) * scale
+        return x.to(dt).reshape(b, t, h, d).transpose(1, 2)
+    if tiny:
+        full = lambda d, val: torch.full((b, h, t, d), val, device=dev)
+        return (full(dk, 0.1), full(dk, 0.1), full(dv, 1.0), full(dk, 1e-9),
+                torch.zeros((h, dk), device=dev))
+    r, k, v = heads(dk, 0.5), heads(dk, 0.5), heads(dv, 1.0)
+    w = torch.exp(-torch.exp(torch.randn((b, t, h * dk), generator=gen,
+                                         device=dev)))
+    w = w.reshape(b, t, h, dk).transpose(1, 2)
+    u = torch.randn((h, dk), generator=gen, device=dev)
+    return r, k, v, w, u
+
+
+def k9_phase(dev, flush):
+    """K9 (the WKV scan) against its plain version over K9_CASES at rtol =
+    atol = 1e-4 (the tiny-decay case also at the reference's 1e-5 / 1e-6):
+    both run the recurrence in f32 on the same inputs and differ only in
+    summation order.  ``impl="kernel"`` must raise where the reference's
+    kernel asserts, and autograd must raise on the card.  Then times at
+    the forward shape."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err = 0.0
+    for b, h, t, dk, dv, dtype, impl, chunk, tiny in K9_CASES:
+        args = _k9_inputs(dev, gen, b, h, t, dk, dv, dtype, tiny)
+        out = ops.rwkv6(*args, impl=impl, chunk=chunk)
+        plain = ref.rwkv6_ref(*args)
+        torch.cuda.synchronize()
+        what = (f"rwkv6 B={b} H={h} T={t} Dk={dk} Dv={dv} {dtype} impl={impl}"
+                f"{' tiny decay' if tiny else ''}")
+        err = check_close(what, out, plain, 1e-4, 1e-4)
+        if tiny:
+            check_close(what, out, plain, 1e-5, 1e-6)
+        max_err = max(max_err, err)
+        log(f"K9 {what}: max abs err {err:.2e}, max |o| "
+            f"{float(out.abs().max()):.3g}")
+    r, k, v, w, u = _k9_inputs(dev, gen, 1, 1, 96, 8, 8, "f32", False)
+    try:
+        ops.rwkv6(r, k, v, w, u, impl="kernel", chunk=64)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("rwkv6 impl='kernel' took T = 96 at chunk 64")
+    try:
+        ops.rwkv6(r.requires_grad_(True), k, v, w, u)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("rwkv6 ran under autograd on the card")
+    log(f"K9 {len(K9_CASES)} cases agree, max abs err {max_err:.2e}; "
+        "impl='kernel' raises on T = 96 at chunk 64, autograd raises")
+    b, h, t, dk, dv = K9_CASES[0][:5]
+    args = _k9_inputs(dev, gen, b, h, t, dk, dv, "bf16", False)
+    # r, k, v bf16 and w f32 read once, u once, o f32 written once; 5
+    # flops per state element and step: r.S, k * v, w * S + kv
+    moved = b * h * t * (3 * dk * 2 + dk * 4 + dv * 4) + h * dk * 4
+    bms, by = bound(moved, 5 * b * h * t * dk * dv)
+    t_k, host = median_ms(lambda: ls.rwkv6_scan(*args), flush=flush)
+    t_p, _ = median_ms(lambda: ref.rwkv6_ref(*args), iters=3, warmup=1,
+                       flush=flush)
+    log(f"K9 B={b} H={h} T={t} Dk={dk} Dv={dv} bf16 kernel_ms={t_k:.4f} "
+        f"plain_ms={t_p:.4f} library_ms=none bound_ms={bms:.4f} ({by}) "
+        f"host_enqueue_ms={host:.4f}")
+    return max_err, {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None}
+
+
+# ------------------------------------------------------------------ K6
+def _k6_inputs(dev, gen, b, n, k, nc=16):
+    import torch
+    x = torch.randint(0, nc, (b, k), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w = torch.randint(0, nc, (n, k), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    packed = (w[:, 0::2] | (w[:, 1::2] << 4)).contiguous()
+    cents = torch.sort(torch.randn((nc,), generator=gen, device=dev)).values
+    return x, w, packed, cents
+
+
+def k6_phase(dev, flush):
+    """K6 (the fully-coded LUT product) against its plain version at
+    llama3-8b's seven projections, B = 4 and 32, for both of the
+    reference's tables (rank-1 outer(c, c) and tanh(lut) + 0.1 sign(lut)),
+    then ragged B, N, K and nc, at rtol = atol = 1e-4 (both add each
+    weight byte's two products in f32 and the byte sums in f64, so they
+    differ only in the order of the f64 adds); an integer table must
+    agree exactly, and a rerun repeat bit for bit.  Times per layer (seven projections) by B, beside the rank-1
+    table's one library call, torch.matmul(c[x], c[w].T) in f32 on the
+    codes dequantised beforehand.  Returns the max error, the times and
+    the launches of the entry point ``ops.lut_product_matmul`` over the
+    seven projections at both B, counted from 0."""
+    import torch
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    max_err, n_cases = 0.0, 0
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    tot = {m: dict.fromkeys(keys, 0.0) for m in (4, 32)}
+    main = []
+    for name, n, kdim in PROJECTIONS:
+        for b in (4, 32):
+            x, w, packed, c = _k6_inputs(dev, gen, b, n, kdim)
+            outer = torch.outer(c, c)
+            outs = []
+            for table in (outer, torch.tanh(outer) + 0.1 * torch.sign(outer)):
+                outs.append(ops.lut_product_matmul(x, packed, table))
+                plain = ref.lut_product_matmul_ref(x, packed, table)
+                torch.cuda.synchronize()
+                err = check_close(f"lut_product {name} B={b}", outs[-1],
+                                  plain, 1e-4, 1e-4)
+                max_err, n_cases = max(max_err, err), n_cases + 1
+            # the rank-1 table is a product of dequantised codes: one f32
+            # matmul (another summation order) is an independent oracle
+            xf, wf = c[x.long()], c[w.long()]
+            check_close(f"lut_product {name} B={b} vs matmul", outs[0],
+                        torch.matmul(xf, wf.T), 1e-3, 1e-3)
+            # bytes: x codes, packed weights, the table, out; operations:
+            # the B * N * K table look-ups at the shared-memory load rate
+            moved = b * kdim + n * kdim // 2 + 16 * 16 * 4 + b * n * 4
+            bms, by = bound(moved, b * n * kdim, SMEM_LOADS_PER_S)
+            t_k, host = median_ms(lambda: lm.lut_product_matmul(x, packed,
+                                                                outer),
+                                  flush=flush)
+            t_p, _ = median_ms(lambda: ref.lut_product_matmul_ref(
+                x, packed, outer), iters=3, warmup=1, flush=flush)
+            t_l, _ = median_ms(lambda: torch.matmul(xf, wf.T), flush=flush)
+            log(f"K6 {name:4s} {n}x{kdim} B={b:2d} err={err:.2e} "
+                f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f}"
+                f" bound_ms={bms:.4f} ({by}) host_enqueue_ms={host:.4f}")
+            row = tot[b]
+            for key, val in zip(keys, (t_k, t_p, bms, t_l)):
+                row[key] += val
+            row["bound_by"] = by
+            main.append((b, (x, packed, outer)))
+            del xf, wf, outs, plain
+    for b, n, kdim, nc in ((5, 1000, 4090, 16), (3, 77, 130, 9),
+                           (33, 4096, 4096, 16), (1, 1, 2, 4)):
+        x, w, packed, c = _k6_inputs(dev, gen, b, n, kdim, nc)
+        outer = torch.outer(c, c)
+        for table in (outer, torch.tanh(outer) + 0.1 * torch.sign(outer)):
+            out = ops.lut_product_matmul(x, packed, table)
+            plain = ref.lut_product_matmul_ref(x, packed, table)
+            torch.cuda.synchronize()
+            err = check_close(f"lut_product B={b} N={n} K={kdim} nc={nc}",
+                              out, plain, 1e-4, 1e-4)
+            max_err, n_cases = max(max_err, err), n_cases + 1
+    x, w, packed, _ = _k6_inputs(dev, gen, 6, 14336, 4096)
+    ints = torch.arange(16, device=dev, dtype=torch.float32) - 8
+    table = torch.outer(ints, ints)
+    if not torch.equal(ops.lut_product_matmul(x, packed, table),
+                       ref.lut_product_matmul_ref(x, packed, table)):
+        raise AssertionError("lut_product: an integer table is not exact")
+    again = ops.lut_product_matmul(x, packed, table)
+    if not torch.equal(again, ops.lut_product_matmul(x, packed, table)):
+        raise AssertionError("lut_product differs on rerun")
+    log(f"K6 {n_cases} cases agree, max abs err {max_err:.2e}; an integer "
+        "table is exact and a rerun repeats bit for bit")
+    for b, row in tot.items():
+        log(f"K6 one layer (7 projections, B={b}): "
+            + " ".join(f"{k}={row[k]:.4f}" for k in keys)
+            + f" bound_by={row['bound_by']}")
+    # the entry point at each B, its launch count set to 0 just before
+    launches = {}
+    for b in tot:
+        lm.lut_product_matmul.launches = 0
+        for _, args in (m for m in main if m[0] == b):
+            ops.lut_product_matmul(*args)
+        torch.cuda.synchronize()
+        launches[b] = lm.lut_product_matmul.launches
+        if launches[b] != len(PROJECTIONS):
+            raise AssertionError(f"ops.lut_product_matmul at B={b} launched K6 "
+                                 f"{launches[b]} times over "
+                                 f"{len(PROJECTIONS)} calls")
+    log(f"K6 entry point: launches by B {launches} over "
+        f"{len(PROJECTIONS)} calls each")
+    return max_err, tot, launches
+
+
 # --------------------------------------------------------------- serve
 def _llama(layers):
     import dataclasses
@@ -633,17 +866,20 @@ def _llama(layers):
 
 
 def _launch_counters():
-    """The eight kernel wrappers, by the name the kernels line gives them."""
+    """The ten kernel wrappers, by the name the kernels line gives them."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.acsr_spmv import acsr_spmv
     from repro_torch.kernels.int8_matmul import int8_matmul
-    from repro_torch.kernels.lut_matmul import lut_matmul
+    from repro_torch.kernels.linear_scan import rwkv6_scan
+    from repro_torch.kernels.lut_matmul import lut_matmul, lut_product_matmul
     from repro_torch.kvstore.paged_attention import (paged_attention,
                                                      paged_attention_chunk)
     return {"acsr_spmv": acsr_spmv, "paged_attention_decode": paged_attention,
             "paged_attention_chunk": paged_attention_chunk,
             "int8_matmul": int8_matmul, "lut_matmul": lut_matmul,
-            **{name: getattr(fa, name) for name in FLASH}}
+            **{name: getattr(fa, name) for name in FLASH},
+            "rwkv6_scan": rwkv6_scan,
+            "lut_product_matmul": lut_product_matmul}
 
 
 def _compressed_engine(dev, cfg, spec, label):
@@ -789,15 +1025,16 @@ def fc_mode_serves(dev, layers):
     return counts
 
 
-def trace_serve(eng, chunk):
+def trace_serve(eng, chunk, n_req=4):
     """Device busy share and kernel time by family over a short serve of
-    the same requests (4 new tokens each), from torch.profiler."""
+    the first ``n_req`` of the same requests (4 new tokens each), from
+    torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sess = eng.session(batch_slots=4, max_len=256,
                        scheduler={"chunk": chunk})
-    for r in _requests(eng.cfg, max_new=4):
+    for r in _requests(eng.cfg, max_new=4)[:n_req]:
         sess.submit(r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -996,6 +1233,354 @@ def cross_check(dev):
             f"{'identical' if not flips else f'{flips} near-tie flips'}")
 
 
+# --------------------------------------------------------------- rwkv6
+RWKV_PROMPT = 32      # positions compared between forward and decode
+# forward vs token-by-token decode.  Both round to bf16 at the same places,
+# but the forward's projections are [B * T, d] products and its WKV is K9,
+# the decode's are [B, d] products and an einsum, so f32 sums run in other
+# orders and bf16 activations land an ulp apart in places.  The randomly
+# initialised rwkv6-7b amplifies such a difference about twofold a layer
+# (on an H100 the forward at T = 32 against itself at T = 64 differs by
+# 2.2e-2 at 1 layer, 0.43 at 4, 4.8 at 32, logits of std 1), so the two
+# routes are compared one layer deep at full width, and at 32 layers only
+# logged beside the forward's own gap between two sequence lengths.  The
+# limits sit between the sound gap and the gaps of faults planted in the
+# decode's WKV (_wkv_faults), as read on an H100 80GB HBM3 at 700 W:
+# logits one layer deep, sound max 5.12e-2 mean 3.27e-3, bonus u dropped
+# 6.44 / 9.28e-2, k and v swapped 7.91 / 1.04, so max 0.15 and mean 0.015.
+# The decay applied before the output (5.12e-2 / 4.95e-3) stays inside
+# the rounding there: at this init the decays are 0.982, so it moves the
+# state by under 2 %.  Layer 0's time-mix output (mean |x| 0.37) sees it:
+# sound 7.81e-3 / 4.58e-5, decay before the output 1.17e-2 / 7.18e-4, u
+# dropped 1.14 / 2.73e-2, k and v swapped 2.99 / 0.506, so max 0.1 and
+# mean 2e-4 there.  A fault must exceed the max or the mean limit.
+RWKV_CHECK_LAYERS = 1
+RWKV_LOGIT_TOL = (0.15, 0.015)
+RWKV_MIX_TOL = (0.1, 2e-4)
+RWKV_LOGITS_BLIND = ("decay before the output",)
+
+
+def _rwkv6_decode_logits(cfg, params, tokens, dev):
+    """Logits of decode_step fed ``tokens`` [B, P] one column at a time."""
+    import torch
+    from repro_torch.models import model as M
+    state = M.init_decode_state(cfg, tokens.shape[0], 2 * tokens.shape[1],
+                                device=dev)
+    steps = []
+    for i in range(tokens.shape[1]):
+        state, lg = M.decode_step(cfg, params, state, tokens[:, i])
+        steps.append(lg[:, :cfg.vocab])
+    return torch.stack(steps, 1)
+
+
+def _wkv_faults(tm):
+    """Decode-side WKV faults, (name, time-mix params, decode step): the
+    bonus u dropped; key and value swapped in the state update (S += v kᵀ,
+    Dk = Dv); the decay applied to the state before the output reads
+    it."""
+    import torch
+    from repro_torch.kernels import ops
+    sound = ops.rwkv6_decode_step
+
+    def kv_swapped(S, r, k, v, w, u):
+        _, o = sound(S, r, k, v, w, u)
+        return w[..., :, None] * S + v[..., :, None] * k[..., None, :], o
+
+    def decay_first(S, r, k, v, w, u):
+        return sound(w[..., :, None] * S, r, k, v, torch.ones_like(w), u)
+    return [("bonus u dropped", dict(tm, u=torch.zeros_like(tm["u"])),
+             sound),
+            ("k and v swapped in the state", tm, kv_swapped),
+            ("decay before the output", tm, decay_first)]
+
+
+@contextlib.contextmanager
+def _decode_step(fn):
+    """ops.rwkv6_decode_step replaced by ``fn`` inside the block."""
+    from repro_torch.kernels import ops
+    sound, ops.rwkv6_decode_step = ops.rwkv6_decode_step, fn
+    try:
+        yield
+    finally:
+        ops.rwkv6_decode_step = sound
+
+
+def _rwkv6_fault_gaps(cfg, params, tokens, dev, full):
+    """{fault: (max, mean)} of the decode logits with each WKV fault
+    planted against the forward's ``full``."""
+    out = {}
+    for name, tm, step in _wkv_faults(params["layers"]["tm"]):
+        faulty = dict(params, layers=dict(params["layers"], tm=tm))
+        with _decode_step(step):
+            out[name] = _gap(_rwkv6_decode_logits(cfg, faulty, tokens, dev),
+                             full)
+    return out
+
+
+def _time_mix_gaps(cfg, params, tokens):
+    """Layer 0's time mix on the embedded ``tokens`` [B, P]: the sequence
+    route (``ops.rwkv6``, K9 on the card) against the decode route fed one
+    token at a time, sound and with each WKV fault planted.  Returns the
+    output's mean magnitude and {"sound" or fault: (max, mean)} of the
+    gaps."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed, rms_norm
+    p0 = _layers(params["layers"], 0)
+    tm0 = p0["tm"]
+    x = rms_norm(embed(tokens, params["embed"]), p0["ln1"])
+    b, t, d = x.shape
+    dh = cfg.rwkv_head_dim
+    seq, _ = ssm.rwkv6_time_mix(tm0, x, torch.zeros_like(x[:, 0]),
+                                d_head=dh)
+    seq = seq.float()
+
+    def decoded(tm):
+        st = {"prev": torch.zeros_like(x[:, 0]),
+              "S": torch.zeros((b, d // dh, dh, dh), dtype=torch.float32,
+                               device=x.device)}
+        outs = []
+        for i in range(t):
+            st, o = ssm.rwkv6_time_mix_decode(tm, st, x[:, i:i + 1],
+                                              d_head=dh)
+            outs.append(o)
+        return torch.cat(outs, 1).float()
+    gaps = {"sound": _gap(decoded(tm0), seq)}
+    for name, tm, step in _wkv_faults(tm0):
+        with _decode_step(step):
+            gaps[name] = _gap(decoded(tm), seq)
+    return float(seq.abs().mean()), gaps
+
+
+def _gap(a, b):
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+def rwkv6_forward_phase(dev):
+    """rwkv6-7b at full width, all 32 layers, random weights from seed 0:
+    ``forward`` over 2 x 2048 tokens under no_grad with every launch count
+    set to 0 just before (one K9 launch per layer, nothing else), finite
+    logits.  Then ``decode_step`` fed the first RWKV_PROMPT tokens one at a
+    time against the forward's logits at those positions: at
+    RWKV_CHECK_LAYERS layers within RWKV_LOGIT_TOL (max, mean) and the same
+    greedy token wherever the top-2 margin exceeds the max; layer 0's time
+    mix, sequence route against decode route, within RWKV_MIX_TOL; every
+    planted WKV fault outside them (the decay fault outside the time-mix
+    limit only); at 32 layers logged beside the forward's own gap between
+    two sequence lengths.  Returns the engine (raw params) and K9's
+    launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import Engine, get
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get("rwkv6-7b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device=dev, seed=0)
+    params = eng.params
+    torch.cuda.synchronize(dev)
+    log(f"rwkv6-7b: init {time.perf_counter() - t0:.2f} s, "
+        f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B params")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 2048)), device=dev)
+    prompt = tokens[:, :RWKV_PROMPT]
+    fns = _launch_counters()
+    with torch.no_grad():
+        M.forward(cfg, params, {"tokens": tokens[:, :64]})   # warm-up
+        for f in fns.values():
+            f.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = M.forward(cfg, params, {"tokens": tokens})
+        torch.cuda.synchronize(dev)
+        t_fwd = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in fns.items()}
+        finite = bool(torch.isfinite(logits).all())
+        head = logits[:, :RWKV_PROMPT, :cfg.vocab].clone()
+        del logits
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        deep = _gap(_rwkv6_decode_logits(cfg, params, prompt, dev), head)
+        short = M.forward(cfg, params, {"tokens": prompt})[0][..., :cfg.vocab]
+        self_gap = _gap(short, head)
+        cut = dataclasses.replace(cfg, n_layers=RWKV_CHECK_LAYERS)
+        p_cut = dict(params, layers=_layers(params["layers"],
+                                            slice(RWKV_CHECK_LAYERS)))
+        full = M.forward(cut, p_cut, {"tokens": tokens})[0]
+        full = full[:, :RWKV_PROMPT, :cfg.vocab]
+        dec = _rwkv6_decode_logits(cut, p_cut, prompt, dev)
+        controls = _rwkv6_fault_gaps(cut, p_cut, prompt, dev, full)
+        scale, tm_gaps = _time_mix_gaps(cfg, params, prompt)
+    log(f"rwkv6 forward d_model {cfg.d_model}, {cfg.n_layers} layers, B=2 "
+        f"T=2048: {t_fwd * 1e3:.2f} ms, peak {peak:.2f} GiB, logits "
+        f"{'finite' if finite else 'NOT finite'}")
+    want = dict.fromkeys(fns, 0)
+    want["rwkv6_scan"] = cfg.n_layers
+    log(f"rwkv6 forward: launches {json.dumps(counts)} (expected "
+        f"{json.dumps(want)})")
+    if counts != want:
+        raise AssertionError("the rwkv6 forward did not launch K9 once per "
+                             "layer")
+    if not finite:
+        raise AssertionError("rwkv6 forward: non-finite logits")
+    log(f"rwkv6 at {cfg.n_layers} layers over {RWKV_PROMPT} positions: "
+        f"decode vs forward max {deep[0]:.4e} mean {deep[1]:.4e}; the "
+        f"forward at T={RWKV_PROMPT} vs T=2048 max {self_gap[0]:.4e} mean "
+        f"{self_gap[1]:.4e} (rounding amplified by depth)")
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > RWKV_LOGIT_TOL[0]
+    agree = torch.equal(dec.argmax(-1)[clear], full.argmax(-1)[clear])
+    gap = _gap(dec, full)
+    log(f"rwkv6 at {RWKV_CHECK_LAYERS} layer(s), full width, over "
+        f"{RWKV_PROMPT} positions: decode vs forward max {gap[0]:.4e} mean "
+        f"{gap[1]:.4e} (limits {RWKV_LOGIT_TOL[0]:g}, mean "
+        f"{RWKV_LOGIT_TOL[1]:g}); greedy tokens "
+        f"{'equal' if agree else 'DIFFER'} at the {int(clear.sum())} of "
+        f"{clear.numel()} positions with a top-2 margin above "
+        f"{RWKV_LOGIT_TOL[0]:g}")
+    for name, g in controls.items():
+        log(f"rwkv6 control, decode with the {name}: vs forward max "
+            f"{g[0]:.4e} mean {g[1]:.4e}")
+    log(f"rwkv6 layer 0 time mix, full width, over {RWKV_PROMPT} positions "
+        f"(output mean |x| {scale:.4e}), decode route vs sequence route "
+        f"(limits {RWKV_MIX_TOL[0]:g}, mean {RWKV_MIX_TOL[1]:g}): "
+        + "; ".join(f"{name} max {g[0]:.4e} mean {g[1]:.4e}"
+                    for name, g in tm_gaps.items()))
+
+    def within(g, lim):
+        return g[0] <= lim[0] and g[1] <= lim[1]
+    if not within(gap, RWKV_LOGIT_TOL):
+        raise AssertionError("rwkv6 forward and decode disagree")
+    if not agree:
+        raise AssertionError("rwkv6 forward and decode pick other tokens")
+    if not within(tm_gaps.pop("sound"), RWKV_MIX_TOL):
+        raise AssertionError("rwkv6 time mix: sequence and decode routes "
+                             "disagree")
+    missed = [name for name, g in controls.items()
+              if name not in RWKV_LOGITS_BLIND and within(g, RWKV_LOGIT_TOL)]
+    missed += [f"{name} (time mix)" for name, g in tm_gaps.items()
+               if within(g, RWKV_MIX_TOL)]
+    if missed:
+        raise AssertionError("the forward-vs-decode limits let a planted "
+                             f"WKV fault pass: {missed}")
+    return eng, counts["rwkv6_scan"]
+
+
+def _layers(tree, key):
+    """Every leaf of a stacked param tree indexed by ``key`` (a layer or a
+    slice of layers), as views."""
+    if isinstance(tree, dict):
+        return {k: _layers(v, key) for k, v in tree.items()}
+    return tree[key]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def rwkv6_serve_phase(dev, eng):
+    """The rwkv6 aida serve at full width, 32 layers:
+    ``eng.compress(aida 0.25).serve`` of the four requests (prompts fed
+    token by token, no pages), every launch count set to 0 just before:
+    8 K1 launches per layer and step and nothing else."""
+    import torch
+    from repro_torch import CompressionSpec, Request
+    t0 = time.perf_counter()
+    eng.compress(CompressionSpec(mode="aida", density=0.25))
+    torch.cuda.synchronize(dev)
+    log(f"serve rwkv6 aida: compress {time.perf_counter() - t0:.2f} s, "
+        f"ratio {eng.stats['ratio']:.3f} vs bf16, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    warm = eng.session(batch_slots=4, max_len=256)
+    warm.submit(Request(prompt=[1, 2, 3], max_new=2, rid=0))
+    warm.run()
+    sess = eng.session(batch_slots=4, max_len=256)
+    for r in _requests(eng.cfg):
+        sess.submit(r)
+    fns = _launch_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = sess.run()
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    steps = sess.stats["steps"]
+    n_tok = sum(len(r.tokens) for r in res)
+    log(f"serve rwkv6 aida: {len(res)}/4 requests, {n_tok} tokens, {steps} "
+        f"steps, {dt * 1e3 / steps:.2f} ms/step, {n_tok / dt:.2f} tok/s, "
+        f"K1 {counts['acsr_spmv'] / steps:.0f} launches/step, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB while "
+        "serving")
+    want = dict.fromkeys(fns, 0)
+    want["acsr_spmv"] = 8 * eng.cfg.n_layers * steps
+    log(f"serve rwkv6 aida: launches {json.dumps(counts)} (expected "
+        f"{json.dumps(want)})")
+    log("serve rwkv6 aida: tokens "
+        + json.dumps({r.rid: r.tokens for r in res}))
+    if len(res) != 4 or any(len(r.tokens) != 16 for r in res):
+        raise AssertionError("the rwkv6 serve did not finish 4/4 requests")
+    if counts != want:
+        raise AssertionError("the rwkv6 serve did not go through K1 on every "
+                             "projection and layer")
+    if sess.stats["nonfinite_logit_rows"]:
+        raise AssertionError("rwkv6 serve: non-finite logits were emitted")
+    # one request: a decode step computes all four slots all the same, and
+    # the profiler's events of a longer serve take long to collect
+    trace_serve(eng, 1, n_req=1)
+
+
+def rwkv6_cross_check(dev):
+    """A reduced rwkv6-7b (two WKV heads of 64) served in aida on the card
+    and on the CPU from the same weights gives the same greedy tokens, or
+    differs only at a near-tie; its forward runs K9 on the card and the
+    plain version on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import CompressionSpec, Engine, Request, bridge, get
+    from repro_torch import reduced
+    from repro_torch.models import model as M
+    cfg = reduced(get("rwkv6-7b"))
+    cpu = Engine(cfg, device="cpu", seed=0)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 64)))
+    with torch.no_grad():
+        want, _ = M.forward(cfg, cpu.params, {"tokens": tokens})
+        got, _ = M.forward(cfg, bridge.to_device(cpu.params, dev),
+                           {"tokens": tokens.to(dev)})
+    diff = float((got.cpu() - want).abs().max())
+    log(f"cross-check: reduced rwkv6-7b forward, cuda vs cpu logits max abs "
+        f"diff {diff:.3e} (tolerance 5e-2, as the CPU port against the "
+        "reference: bf16 activations an ulp apart where f32 sums differ)")
+    if diff > 5e-2:
+        raise AssertionError("rwkv6 forward: card and CPU logits disagree")
+    cpu.compress(CompressionSpec(mode="aida", density=0.25))
+    gpu = Engine(cfg, params=bridge.to_device(cpu.params, dev), device=dev)
+    out = {}
+    for name, eng in (("cpu", cpu), ("cuda", gpu)):
+        sess = eng.session(batch_slots=4, max_len=256)
+        for i, n in enumerate((5, 9, 16, 23)):
+            sess.submit(Request(prompt=[(7 * i + 3 * j) % cfg.vocab
+                                        for j in range(n)],
+                                max_new=16, rid=i))
+        out[name] = (sess.run(), sess.margins)
+    (ref, margins), (res, _) = out["cpu"], out["cuda"]
+    flips = _near_tie_flips(ref, margins, res, "cross-check rwkv6 aida")
+    log("cross-check: reduced rwkv6-7b aida, cuda vs cpu greedy tokens: "
+        + ("identical" if not flips else f"{flips} near-tie flips"))
+
+
 def _by_shape(times, launches):
     """An FC kernel's numbers for the kernels line: per layer (seven
     projections) at each row count the main path gives it, beside that
@@ -1011,11 +1596,20 @@ def _by_shape(times, launches):
     return {**top, "shapes": shapes}
 
 
+def _timed(name, fn, *args):
+    """fn(*args), logging its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the served llama3-8b to this many layers")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1034,42 +1628,59 @@ def main(argv=None) -> int:
     log(f"kernel build: {t_build:.2f} s ({len(build.SOURCES)} libraries)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, times = {}, {}
-    errs["acsr_spmv"], times["acsr_spmv"] = k1_phase(dev, flush)
+    errs["acsr_spmv"], times["acsr_spmv"] = _timed("K1", k1_phase, dev,
+                                                    flush)
     errs["paged_attention_decode"], times["paged_attention_decode"] = \
-        k2_phase(dev, flush)
+        _timed("K2", k2_phase, dev, flush)
     errs["paged_attention_chunk"], times["paged_attention_chunk"] = \
-        k3_phase(dev, flush)
-    fc_errs, fc_times = fc_phase(dev, flush)
+        _timed("K3", k3_phase, dev, flush)
+    fc_errs, fc_times = _timed("K4/K5", fc_phase, dev, flush)
     for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
         errs[name] = fc_errs[mode]
         times[name] = {m: fc_times[(mode, m)] for m in (4, 32)}
-    flash_errs, flash_rows = flash_phase(dev, flush)
+    flash_errs, flash_rows = _timed("K7/K8", flash_phase, dev, flush)
     times.update(flash_rows)
     errs["flash_attention_fwd"] = max(flash_errs["o"], flash_errs["lse"])
     errs["flash_attention_dq"] = flash_errs["dq"]
     errs["flash_attention_dkv"] = max(flash_errs["dk"], flash_errs["dv"])
+    errs["rwkv6_scan"], times["rwkv6_scan"] = _timed("K9", k9_phase, dev,
+                                                     flush)
+    errs["lut_product_matmul"], times["lut_product_matmul"], k6_launches = \
+        _timed("K6", k6_phase, dev, flush)
     del flush
     layers = args.layers or 32
-    launches, by_rows = serve_phase(dev, layers)
-    by_rows = {"acsr_spmv": by_rows, **fc_mode_serves(dev, layers)}
+    launches, by_rows = _timed("serve aida", serve_phase, dev, layers)
+    by_rows = {"acsr_spmv": by_rows,
+               **_timed("serve int8 / codebook4", fc_mode_serves, dev,
+                        layers)}
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())
     launches["lut_matmul"] = sum(by_rows["lut_matmul"].values())
-    train_counts = train_phase(dev, TRAIN_LAYERS)
+    train_counts = _timed("train", train_phase, dev, TRAIN_LAYERS)
     for name in FLASH:
         launches[name] = train_counts[name]
-    cross_check(dev)
-    train_cross_check(dev)
+    _timed("cross-check", cross_check, dev)
+    _timed("train cross-check", train_cross_check, dev)
+    eng, launches["rwkv6_scan"] = _timed("rwkv6 forward",
+                                         rwkv6_forward_phase, dev)
+    _timed("rwkv6 serve", rwkv6_serve_phase, dev, eng)
+    del eng
+    _timed("rwkv6 cross-check", rwkv6_cross_check, dev)
+    launches["lut_product_matmul"] = sum(k6_launches.values())
+    by_rows["lut_product_matmul"] = k6_launches
     kernels = []
     for name, source, replaces in KERNELS:
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": errs[name]}
-        if name in by_rows:     # FC kernels: per layer, at 4 and 32 rows
+        if name in by_rows:   # FC kernels: per layer, at 4 and 32 rows
             row.update(_by_shape(times[name], by_rows[name]))
         else:
             row.update(times[name])
         kernels.append(row)
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(smi)                  # the card again, beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

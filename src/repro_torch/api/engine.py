@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from repro_torch.api import compress as compress_mod
-from repro_torch.api.session import Session
+from repro_torch.api.session import RecurrentSession, Session
 from repro_torch.api.spec import CompressionSpec, Request, Result
 from repro_torch.configs.base import ArchConfig
 
@@ -84,11 +84,11 @@ class Engine:
         """A continuous-batching serving session on the engine's device."""
         if self.cfg is None:
             raise ValueError("serving needs an ArchConfig")
-        return Session(self.cfg, self.params, batch_slots=batch_slots,
-                       max_len=max_len, device=self.device,
-                       kv_cache=kv_cache, page_size=page_size,
-                       kv_pool_pages=kv_pool_pages, kv_dtype=kv_dtype,
-                       scheduler=scheduler)
+        cls = RecurrentSession if self.cfg.family == "rwkv6" else Session
+        return cls(self.cfg, self.params, batch_slots=batch_slots,
+                   max_len=max_len, device=self.device, kv_cache=kv_cache,
+                   page_size=page_size, kv_pool_pages=kv_pool_pages,
+                   kv_dtype=kv_dtype, scheduler=scheduler)
 
     def serve(self, requests: Sequence[Union[Request, List[int]]], *,
               batch_slots: int = 4, max_len: int = 256,

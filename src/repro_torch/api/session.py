@@ -1,5 +1,6 @@
 """Serving session: continuous batching over a fixed-slot decode batch and
-a paged KV pool.
+a paged KV pool (attention families) or the per-slot recurrent state
+(rwkv6, which has nothing to page).
 
 Requests occupy slots; a finished slot is refilled from the scheduler's
 queue without stopping the batch.  The FIFO scheduler admits a request
@@ -12,9 +13,12 @@ otherwise, and with chunk 1, prompts feed token by token through the
 decode step.  Pages are allocated host-side the step a sequence crosses a
 page boundary and freed the moment its request completes.
 
-This slice serves the paged cache only, without mesh, disaggregated
-roles, fault injection, tracing or prefix cache: those land with later
-slices of the port.
+The rwkv6 family serves through ``RecurrentSession`` with its per-slot
+state whatever ``kv_cache`` asks, as in the JAX package: no allocator and
+no page table, chunk 1 (its time mix is recurrent), and a slot's state
+zeroed when a request is admitted to it.  The full cache of attention
+families, mesh, disaggregated roles, fault
+injection, tracing and the prefix cache land with later slices.
 """
 from __future__ import annotations
 
@@ -47,11 +51,6 @@ class Session:
                  kv_cache: Optional[str] = None, page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, scheduler=None):
-        kv_cache = resolve_kv_cache(kv_cache, cfg)
-        if kv_cache != "paged":
-            raise NotImplementedError(
-                f"kv_cache={kv_cache!r}: the port serves the paged cache; "
-                "the full cache lands with a later slice")
         self.cfg, self.params = cfg, params
         self.device = torch.device(device)
         self.slots = batch_slots
@@ -63,15 +62,7 @@ class Session:
         # prompts feed token by token
         self.chunk = self.sched.cfg.chunk \
             if schd.supports_chunked_prefill(cfg) else 1
-        self.state = M.init_decode_state(
-            cfg, batch_slots, max_len, page_size=page_size,
-            kv_pool_pages=kv_pool_pages, kv_dtype=self.kv_dtype,
-            device=self.device)
-        self.alloc = kvs.PageAllocator(self.state["layers"]["kv"].n_pages)
-        # host mirror of the device page table (allocation decisions never
-        # read device memory back)
-        self.host_table = np.full(
-            (batch_slots, self.state["page_table"].shape[1]), -1, np.int64)
+        self._init_state(resolve_kv_cache(kv_cache, cfg), kv_pool_pages)
         self.slot_pos = [0] * batch_slots
         self.slot_entry: List[Optional[schd.SchedEntry]] = \
             [None] * batch_slots
@@ -84,6 +75,22 @@ class Session:
                       "preemptions": 0, "chunk": self.chunk,
                       "page_allocs": 0, "pages_in_use": 0, "pages_peak": 0,
                       "nonfinite_logit_rows": 0}
+
+    def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
+        if kv_cache != "paged":
+            raise NotImplementedError(
+                f"kv_cache={kv_cache!r}: the port serves attention families "
+                "from the paged cache; their full cache lands with a later "
+                "slice")
+        self.state = M.init_decode_state(
+            self.cfg, self.slots, self.max_len, kv_cache="paged",
+            page_size=self.page_size, kv_pool_pages=kv_pool_pages,
+            kv_dtype=self.kv_dtype, device=self.device)
+        self.alloc = kvs.PageAllocator(self.state["layers"]["kv"].n_pages)
+        # host mirror of the device page table (allocation decisions never
+        # read device memory back)
+        self.host_table = np.full(
+            (self.slots, self.state["page_table"].shape[1]), -1, np.int64)
 
     # ------------------------------------------------------------ public
     def submit(self, req: Request) -> None:
@@ -332,3 +339,29 @@ class Session:
             self.results.append(Result(req.rid, self.slot_out[i]))
             self.slot_entry[i] = None
             self._release_slot_pages(i)
+
+
+class RecurrentSession(Session):
+    """rwkv6: one recurrent state per slot, the same size at every length,
+    so nothing to page whatever ``kv_cache`` asks: slots are pre-allocated,
+    admission always fits and a slot's state is zeroed on admission."""
+
+    def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
+        self.state = M.init_decode_state(self.cfg, self.slots, self.max_len,
+                                         device=self.device)
+        self.alloc = None
+
+    def _fits(self, entry: schd.SchedEntry) -> bool:
+        return True
+
+    def _reset_slot_state(self, i: int):
+        for leaf in self.state["layers"].values():        # [L, B, ...]
+            leaf[:, i] = 0
+        self.state["pos"][i] = 0
+        self.slot_pos[i] = 0
+
+    def _release_slot_pages(self, i: int) -> None:
+        pass
+
+    def _ensure_pages(self, counts: List[int]) -> None:
+        pass

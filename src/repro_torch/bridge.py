@@ -5,11 +5,13 @@ turned into a numpy array (``jax.tree.map(np.asarray, tree)`` keeps the
 reference's containers and swaps their arrays); this module reads those
 containers by their field names and never imports the reference.
 
-Covered: raw param dicts, ``CompressedFC`` in all five modes (int8's
+Covered: raw param dicts (the dense family's and the rwkv6 family's
+``tm`` / ``cm`` trees), ``CompressedFC`` in all five modes (int8's
 ``QTensor`` codes and scales, codebook4's packed codes and centroids),
 stacked or single ``BlockedACSR`` (int16 or int32 col_idx, uint8 codes or
 f32 / bf16 values, [L, 16] centroids), the paged decode state
-(``PagedKV`` pools, ``pos``, ``page_table``) and the training state
+(``PagedKV`` pools, ``pos``, ``page_table``), the rwkv6 decode state
+(``tm_prev``, ``cm_prev``, ``S``, ``pos``) and the training state
 (``TrainState(params, OptState(step, m, v))``).
 """
 from __future__ import annotations

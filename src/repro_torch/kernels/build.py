@@ -25,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 SOURCES = ("acsr_spmv", "paged_attention", "int8_matmul", "lut_matmul",
-           "flash_attention")
+           "flash_attention", "linear_scan", "lut_product")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,17 +1,23 @@
-"""Codebook4-weight FC: ``act(x @ centroids[unpack4(codes)].T + bias)``,
-4-bit codes two per byte, low nibble first.
+"""Codebook FCs, 4-bit weight codes two per byte, low nibble first.
 
-:func:`lut_matmul` launches the hand-written CUDA kernel
-``csrc/lut_matmul.cu`` (K5) for tensors on the card and takes its plain
-version :func:`lut_matmul_ref` for tensors on the CPU.
+* :func:`lut_matmul` — codes x real activations,
+  ``act(x @ centroids[unpack4(codes)].T + bias)``: the hand-written CUDA
+  kernel ``csrc/lut_matmul.cu`` (K5) for tensors on the card, its plain
+  version :func:`lut_matmul_ref` for tensors on the CPU.
+* :func:`lut_product_matmul` — codes x coded activations, every multiply a
+  look-up in an nc x nc product table (AIDA's fully-coded mode): the
+  kernel ``csrc/lut_product.cu`` (K6) on the card, its plain version
+  :func:`repro_torch.kernels.ref.lut_product_matmul_ref` on the CPU.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from repro_torch.core.codebook import unpack4
+from repro_torch.kernels import build
 from repro_torch.kernels import fc_tile
 from repro_torch.kernels import ref
 
@@ -56,3 +62,58 @@ def lut_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
 
 
 lut_matmul.launches = 0
+
+
+#: K6's geometry (``csrc/lut_product.cu``): codes per 16-byte load (a K
+#: split is a multiple of it), codes staged per pass, rows and batch rows
+#: of a block
+K6_RUN, K6_STEP, K6_ROWS, K6_BATCH = 32, 256, 64, 32
+
+
+def lut_product_matmul(x_codes: torch.Tensor, codes_packed: torch.Tensor,
+                       lut: torch.Tensor) -> torch.Tensor:
+    """out[b, n] = Σ_{k<K} lut[w[n, k], x[b, k]]: x_codes [B, K] uint8,
+    codes_packed [N, K/2] uint8, lut [nc, nc] (nc <= 16, every code < nc)
+    -> [B, N] f32.  A CUDA tensor launches K6 (or raises); a CPU tensor
+    takes the plain version."""
+    b, kdim = x_codes.shape
+    n, kb = codes_packed.shape
+    nc = lut.shape[0]
+    if x_codes.dtype != torch.uint8 or codes_packed.dtype != torch.uint8 \
+            or kdim != 2 * kb or lut.shape != (nc, nc) or not 1 <= nc <= 16:
+        raise ValueError(f"lut_product_matmul: x codes {tuple(x_codes.shape)}"
+                         f" {x_codes.dtype}, codes {tuple(codes_packed.shape)}"
+                         f" {codes_packed.dtype}, lut {tuple(lut.shape)} do "
+                         "not fit")
+    if x_codes.device.type == "cpu":
+        return ref.lut_product_matmul_ref(x_codes, codes_packed, lut)
+    dev = x_codes.device
+    if codes_packed.device != dev or lut.device != dev:
+        raise ValueError("lut_product_matmul operands must be on one device")
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if out.numel() == 0 or kdim == 0:
+        return out.zero_()
+    x_codes, codes_packed = x_codes.contiguous(), codes_packed.contiguous()
+    lut = lut.to(torch.float32).contiguous()
+    # split K until the card has ~2 blocks per SM
+    blocks = fc_tile.cdiv(n, K6_ROWS) * fc_tile.cdiv(b, K6_BATCH)
+    ksplit = max(1, min(fc_tile.cdiv(2 * build.sm_count(dev), blocks),
+                        fc_tile.cdiv(kdim, K6_STEP)))
+    per_split = fc_tile.cdiv(fc_tile.cdiv(kdim, ksplit), K6_RUN) * K6_RUN
+    ksplit = fc_tile.cdiv(kdim, per_split)
+    part = torch.empty((ksplit * b * n if ksplit > 1 else 1,),
+                       dtype=torch.float64, device=dev)
+    fn = build.library("lut_product").lut_product_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    status = fn(x_codes.data_ptr(), codes_packed.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), part.data_ptr(), b, n, kdim, nc, ksplit,
+                per_split, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "lut_product_launch")
+    lut_product_matmul.launches += 1
+    return out
+
+
+lut_product_matmul.launches = 0

@@ -237,3 +237,59 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     dq = flash_attention_dq_ref(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_attention_dkv_ref(q, k, v, do, lse, delta, **kw))
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """RWKV6 (Finch) WKV recurrence, sequential over T in f32, as the JAX
+    package's ``rwkv6_ref``:  S_t = diag(w_t) S_{t-1} + k_t v_tᵀ,
+    o_t = (S_{t-1} + diag(u) k_t v_tᵀ)ᵀ r_t, S_0 = 0.
+
+    r, k, w [B, H, T, Dk], v [B, H, T, Dv], u [H, Dk] -> o [B, H, T, Dv]
+    f32.  Differentiable by autograd (the training path on the CPU)."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()[None, :, :, None]                      # [1, H, Dk, 1]
+    s = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    out = []
+    for i in range(t):
+        kv = k[:, :, i, :, None] * v[:, :, i, None, :]   # [B, H, Dk, Dv]
+        out.append(((s + u * kv) * r[:, :, i, :, None]).sum(dim=-2))
+        s = w[:, :, i, :, None] * s + kv
+    if not out:
+        return torch.zeros((b, h, 0, dv), dtype=torch.float32,
+                           device=r.device)
+    return torch.stack(out, dim=2)
+
+
+#: entries of the plain version's [B, rows, K] index tensor per slice of N
+LUT_SLICE = 1 << 24
+
+
+def lut_product_matmul_ref(x_codes: torch.Tensor, codes_packed: torch.Tensor,
+                           lut: torch.Tensor) -> torch.Tensor:
+    """Fully-coded FC: out[b, n] = Σ_{k<K} lut[w[n, k], x[b, k]], both
+    operands 4-bit codes (weights two per byte, low nibble first).
+
+    x_codes [B, K] uint8, codes_packed [N, K/2] uint8, lut [nc, nc] ->
+    [B, N] f32.  The sum runs exactly over k < K: the two products of each
+    weight byte are added in f32, the byte sums in f64, and the total is
+    rounded to f32 once, as the kernel does.  N is taken in slices so the
+    [B, slice, K] index tensor stays near ``LUT_SLICE`` entries (the whole
+    of it at B 32, N 14336, K 4096 would be 1.9 G)."""
+    from repro_torch.core.codebook import unpack4
+    b, kdim = x_codes.shape
+    n, nc = codes_packed.shape[0], lut.shape[0]
+    table = lut.float().reshape(-1)
+    x = x_codes.long()[:, None, :]                         # [B, 1, K]
+    step = max(1, LUT_SLICE // max(1, b * kdim))
+    out = []
+    for n0 in range(0, n, step):
+        wc = unpack4(codes_packed[n0:n0 + step]).long()    # [s, K]
+        prods = table[wc[None] * nc + x]                   # [B, s, K]
+        pairs = prods.reshape(b, prods.shape[1], -1, 2).sum(dim=-1)
+        out.append(pairs.double().sum(dim=-1).float())
+    if not out:
+        return torch.zeros((b, 0), dtype=torch.float32, device=lut.device)
+    return torch.cat(out, dim=1)

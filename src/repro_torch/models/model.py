@@ -1,5 +1,6 @@
 """Top-level model API of the port: init, forward and loss for training,
-paged decode state and decode step."""
+decode state (paged for attention, recurrent for rwkv6) and decode
+step."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -122,29 +123,48 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
-                      page_size: int = 16,
+                      kv_cache: Optional[str] = None, page_size: int = 16,
                       kv_pool_pages: Optional[int] = None,
                       kv_dtype: str = "bf16", device=None) -> Dict:
-    """Paged decode state: the stacked page pools plus one per-sequence
-    page table shared by every layer."""
+    """Decode state.  ``kv_cache`` None takes the family's own: "full" for
+    rwkv6 (the per-slot recurrent state, the same size at every length),
+    "paged" elsewhere (the stacked page pools plus one per-sequence page
+    table shared by every layer).  As in the JAX package rwkv6 refuses
+    "paged"; attention families refuse "full" until its KV cache is
+    ported."""
+    if kv_cache is None:
+        kv_cache = "full" if cfg.family == "rwkv6" else "paged"
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if kv_cache == "full":
+        if cfg.family != "rwkv6":
+            raise NotImplementedError(
+                f"{cfg.name}: the full (unpaged) KV cache of attention "
+                "layers lands with a later slice; use kv_cache='paged'")
+        return {"layers": tfm.init_stack_state(cfg, batch, max_len,
+                                               device=device),
+                "pos": pos}
+    if kv_cache != "paged":
+        raise ValueError(f"unknown kv_cache {kv_cache!r}")
+    if cfg.family == "rwkv6":
+        raise ValueError("paged KV cache needs attention layers; "
+                         f"{cfg.name} is attention-free")
     layers = tfm.init_stack_state(cfg, batch, max_len, page_size=page_size,
                                   kv_pool_pages=kv_pool_pages,
                                   kv_dtype=kv_dtype, device=device)
-    return {"layers": layers,
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    return {"layers": layers, "pos": pos,
             "page_table": kvs.init_table(batch, max_len, page_size,
                                          device=device)}
 
 
 def decode_step(cfg: ArchConfig, params: Dict, state: Dict,
                 tokens: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
-    """tokens [B] -> (state', logits [B, Vpad] f32).  The state's pools are
-    written in place (the JAX step donates its state for the same reason:
-    the pools are never copied); ``pos`` advances by one."""
+    """tokens [B] -> (state', logits [B, Vpad] f32).  The state's pools (or
+    rwkv6 states) are written in place (the JAX step donates its state for
+    the same reason: they are never copied); ``pos`` advances by one."""
     x = embed(tokens[:, None], params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    table = state["page_table"]
+    table = state.get("page_table")
     layers, x = tfm.stack_decode(cfg, params["layers"], state["layers"], x,
                                  state["pos"], table)
     x = rms_norm(x, params["final_norm"])
@@ -153,6 +173,7 @@ def decode_step(cfg: ArchConfig, params: Dict, state: Dict,
     else:
         logits = _bf16_matmul(x, params["lm_head"])
     logits = softcap(logits, cfg.final_softcap)
-    new_state = {"layers": layers, "pos": state["pos"] + 1,
-                 "page_table": table}
+    new_state = {"layers": layers, "pos": state["pos"] + 1}
+    if table is not None:
+        new_state["page_table"] = table
     return new_state, logits[:, 0, :]

@@ -1,5 +1,6 @@
-"""Dense-family block and the layer stack, for training / prefill and for
-paged decode.
+"""Blocks of the dense (rms-norm) and rwkv6 families and the layer stack,
+for training / prefill and for decode (paged for dense, the recurrent
+state for rwkv6).
 
 Params and decode state are stacked over layers ([L, ...]); the JAX
 package's scan over layers is a Python loop over layer views (indexing,
@@ -16,22 +17,31 @@ from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import mlp, mlp_init, rms_norm, rms_norm_init
+from repro_torch.models import ssm
+from repro_torch.models.layers import (COMPUTE_DTYPE, mlp, mlp_init,
+                                       rms_norm, rms_norm_init)
 
 REMAT = ("none", "dots", "full")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.norm != "rms" or cfg.post_norms:
+    if cfg.family not in ("dense", "rwkv6") or cfg.norm != "rms" or \
+            cfg.post_norms:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense rms-norm family so far; "
-            "the other families land with a later slice")
+            f"{cfg.name}: the port runs the dense and rwkv6 rms-norm "
+            "families so far; the others land with a later slice")
 
 
 def layer_init(cfg: ArchConfig, gen: torch.Generator, lead=()) -> Dict:
     """One layer's params (``lead=(L,)`` draws the whole stack at once)."""
     _check_family(cfg)
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "rwkv6":
+        return {"ln1": rms_norm_init(d, lead, gen.device),
+                "ln2": rms_norm_init(d, lead, gen.device),
+                "tm": ssm.rwkv6_time_mix_init(gen, d, cfg.rwkv_head_dim,
+                                              lead=lead),
+                "cm": ssm.rwkv6_channel_mix_init(gen, d, f, lead=lead)}
     return {"ln1": rms_norm_init(d, lead, gen.device),
             "ln2": rms_norm_init(d, lead, gen.device),
             "attn": attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv,
@@ -48,9 +58,20 @@ def init_layer_state(cfg: ArchConfig, batch: int, slots_full: int,
                      kv_pool_pages: Optional[int] = None,
                      kv_dtype: str = "bf16", device=None,
                      n_layers: Optional[int] = None) -> Dict:
-    """Paged decode state of one layer (``n_layers`` stacks [L] in front):
-    a page pool indexed through the one shared page table."""
+    """Decode state of one layer (``n_layers`` stacks [L] in front): for
+    rwkv6 the previous token's normed inputs of the two mixes (bf16) and
+    the WKV state (f32 [B, H, dh, dh]); otherwise a page pool indexed
+    through the one shared page table."""
     _check_family(cfg)
+    if cfg.family == "rwkv6":
+        lead = () if n_layers is None else (n_layers,)
+        h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        return {"tm_prev": torch.zeros(lead + (batch, cfg.d_model),
+                                       dtype=COMPUTE_DTYPE, device=device),
+                "cm_prev": torch.zeros(lead + (batch, cfg.d_model),
+                                       dtype=COMPUTE_DTYPE, device=device),
+                "S": torch.zeros(lead + (batch, h, dh, dh),
+                                 dtype=torch.float32, device=device)}
     npp = -(-slots_full // page_size)
     n_pages = 1 + batch * npp if kv_pool_pages is None else kv_pool_pages
     return {"kv": kvs.init_pool(n_pages, cfg.n_kv, page_size, cfg.head_dim,
@@ -60,8 +81,8 @@ def init_layer_state(cfg: ArchConfig, batch: int, slots_full: int,
 
 def init_stack_state(cfg: ArchConfig, batch: int, slots_full: int,
                      **kv_kw) -> Dict:
-    """The whole stack's paged decode state, allocated stacked ([L, ...])
-    rather than stacked from per-layer copies."""
+    """The whole stack's decode state, allocated stacked ([L, ...]) rather
+    than stacked from per-layer copies."""
     return init_layer_state(cfg, batch, slots_full, n_layers=cfg.n_layers,
                             **kv_kw)
 
@@ -94,14 +115,24 @@ def unstack(tree, n: int):
 def block_forward(cfg: ArchConfig, p: Dict, x, positions, window: int,
                   attn_impl: str = "einsum"):
     """One layer, training / prefill, x [B, T, D] bf16 -> (x, aux); aux is
-    0 for the dense family."""
+    0 for the dense and rwkv6 families.  An rwkv6 layer starts from a zero
+    token shift and a zero WKV state."""
     _check_family(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "rwkv6":
+        zeros = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+        h, _ = ssm.rwkv6_time_mix(p["tm"], rms_norm(x, p["ln1"]), zeros,
+                                  d_head=cfg.rwkv_head_dim)
+        x = x + h
+        h, _ = ssm.rwkv6_channel_mix(p["cm"], rms_norm(x, p["ln2"]), zeros)
+        return x + h, aux
     h = attn.attn_apply(p["attn"], rms_norm(x, p["ln1"]), positions,
                         window=window, causal=cfg.causal, impl=attn_impl,
                         **_attn_kwargs(cfg))
     x = x + h
     h = mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
-    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux
 
 
 def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
@@ -127,8 +158,19 @@ def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
 
 def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
                  window: int, page_table):
-    """One layer, one token, x [B, 1, D].  Writes the layer's pool in
-    place and returns (state, x)."""
+    """One layer, one token, x [B, 1, D].  Writes the layer's pool (or its
+    rwkv6 state) in place and returns (state, x)."""
+    if cfg.family == "rwkv6":
+        tm, h = ssm.rwkv6_time_mix_decode(
+            p["tm"], {"prev": st["tm_prev"], "S": st["S"]},
+            rms_norm(x, p["ln1"]), d_head=cfg.rwkv_head_dim)
+        x = x + h
+        cm_prev, h = ssm.rwkv6_channel_mix_decode(p["cm"], st["cm_prev"],
+                                                  rms_norm(x, p["ln2"]))
+        st["tm_prev"].copy_(tm["prev"])
+        st["S"].copy_(tm["S"])
+        st["cm_prev"].copy_(cm_prev)
+        return st, x + h
     pool, h = attn.attn_decode_paged(p["attn"], st["kv"], page_table,
                                      rms_norm(x, p["ln1"]), cur_pos,
                                      window=window, **_attn_kwargs(cfg))
@@ -140,8 +182,9 @@ def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
 def stack_decode(cfg: ArchConfig, stacked: Dict, states: Dict, x, cur_pos,
                  page_table):
     """Every layer in turn over layer views of the stacked params and
-    state; the pools are written in place, so the returned state is the
-    one passed in."""
+    state; the pools (or rwkv6 states) are written in place, so the
+    returned state is the one passed in.  ``page_table`` is None for
+    rwkv6."""
     for i, window in enumerate(cfg.layer_windows()):
         _, x = block_decode(cfg, layer_view(stacked, i),
                             layer_view(states, i), x, cur_pos, window,

@@ -23,6 +23,9 @@ def test_import_loads_no_jax_and_no_reference():
         "from repro_torch.data import pipeline\n"
         "from repro_torch.runtime import compression, fault_tolerance\n"
         "from repro_torch.kernels import ops, flash_attention\n"
+        "from repro_torch.kernels import linear_scan, lut_matmul\n"
+        "from repro_torch.models import ssm\n"
+        "from repro_torch.configs import rwkv6_7b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
