@@ -5,11 +5,15 @@
 
 Phases, each of which exits non-zero when it fails:
 
-1. build the seven CUDA libraries (ten kernels) from
+1. build the seven CUDA libraries (eleven kernels) from
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) and print the
    card (nvidia-smi name, power limit);
-2. K1 (blocked-ACSR SpMV) against its plain version at the seven
-   llama3-8b projection geometries, 4 and 32 columns, density 0.25;
+2. K1 (blocked-ACSR SpMV: a gather kernel up to 8 columns, a
+   tensor-core kernel beyond) against its plain version at the seven
+   llama3-8b projection geometries at 1, 4, 8, 12, 32 and 40 columns,
+   rwkv6-7b's eight at 4, acsr with f32 and bf16 values, 40000 columns
+   (int32 ids) and rows of row_nnz = 0, density 0.25; every call twice,
+   bit-identical;
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row;
@@ -21,7 +25,9 @@ Phases, each of which exits non-zero when it fails:
 6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
    at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
    (windows, softcaps, non-causal, Hkv 1-8, D 64 / 128, ragged T, f32);
-   a second dkv run must repeat bit for bit;
+   a second dkv run must repeat bit for bit; K8's errors are logged beside
+   those of an f32-FMA K8, as its products run on the tensor cores with
+   f32 operands split into bf16 hi + lo;
 7. K9 (the rwkv6 WKV scan) against its plain version at rwkv6-7b's
    forward shape (B=2, H=64, T=2048, 64 x 64 state, bf16 r / k / v read
    through strided head views), the reference's test shapes, its
@@ -80,6 +86,8 @@ BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
 SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
 KERNELS = [                        # (name, csrc file, TPU kernel replaced)
     ("acsr_spmv", "acsr_spmv.cu", "src/repro/kernels/acsr_spmv.py:160"),
+    ("acsr_spmv_gather", "acsr_spmv.cu",
+     "src/repro/kernels/acsr_spmv.py:160"),
     ("paged_attention_decode", "paged_attention.cu",
      "src/repro/kvstore/paged_attention.py:150"),
     ("paged_attention_chunk", "paged_attention.cu",
@@ -156,78 +164,138 @@ def check_close(name, out, ref, rtol, atol):
 
 
 # ------------------------------------------------------------------ K1
+RWKV6_PROJECTIONS = [              # rwkv6-7b: time mix, then channel mix
+    ("tm.wr", 4096, 4096), ("tm.wk", 4096, 4096), ("tm.wv", 4096, 4096),
+    ("tm.wg", 4096, 4096), ("tm.wo", 4096, 4096), ("cm.wk", 14336, 4096),
+    ("cm.wv", 4096, 14336), ("cm.wr", 4096, 4096)]
+# column counts K1 is held at: 1 and 8 bound the gather variant; 12 and 40
+# take the tensor-core variant's 16-column pass and a second (8-column)
+# group after a 32-column one; 4 (decode) and 32 (a chunk-8 step of 4
+# slots) are the serve's, and timed
+K1_COLUMNS = (1, 4, 8, 12, 32, 40)
+K1_TIMED = (4, 32)
+
+
+def _k1_weight(gen, dev, n_out, n_in, empty_rows):
+    import torch
+    w = torch.randn((n_out, n_in), generator=gen, device=dev) * n_in ** -0.5
+    if empty_rows:        # rows of row_nnz = 0: every third row, and all of
+        w[::3] = 0.0      # rows 64-191 (two whole CUDA blocks of 64 rows)
+        w[64:192] = 0.0
+    return w
+
+
 def k1_phase(dev, flush):
-    """K1 against its plain version at the seven projections (and one acsr
-    f32 case), at the decode batch (4 columns) and a chunk-8 step's (32
-    columns).  Returns the max error and the per-layer totals by column
-    count."""
+    """K1's two variants (the gather kernel up to 8 columns, the
+    tensor-core kernel beyond) against their plain version (rtol = atol =
+    1e-4), each call run twice and bit-identical: llama3-8b's seven
+    projections (aida 0.25) at every column count of K1_COLUMNS, rwkv6-7b's
+    eight at 4 columns, and four more containers: acsr with f32 and with
+    bf16 values, 40000 columns (int32 ids) and rows of row_nnz = 0.  The
+    tensor-core variant is also held and timed at 4 columns (it serves a
+    last group of <= 8 columns).  Times at the serve's shapes.  Returns the
+    max errors and llama3-8b's per-layer totals by variant, and rwkv6-7b's
+    per-layer total at 4 columns."""
     import torch
     from repro_torch.core import sparse_fc as sfc
     from repro_torch.kernels import acsr_spmv as sp
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0.0
+    errs = {"acsr_spmv": 0.0, "acsr_spmv_gather": 0.0}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    totals = {batch: dict.fromkeys(keys, 0.0) for batch in (4, 32)}
-    cases = [(n, o, i, "aida") for n, o, i in PROJECTIONS] + \
-        [("wo-acsr-f32", 4096, 4096, "acsr")]
-    for name, n_out, n_in, mode in cases:
-        w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
-            n_in ** -0.5
-        layer = sfc.compress(w, mode=mode, density=0.25)
+    totals = {(v, m): dict.fromkeys(keys, 0.0) for v, m in
+              (("acsr_spmv_gather", 4), ("acsr_spmv", 32), ("acsr_spmv", 4))}
+    rwkv6 = dict.fromkeys(keys, 0.0)
+    # (label, n_out, n_in, mode, value dtype, column counts, per-layer sum)
+    cases = [(n, o, i, "aida", "f32", K1_COLUMNS, "llama")
+             for n, o, i in PROJECTIONS] + \
+        [(f"rwkv6 {n}", o, i, "aida", "f32", (4,), "rwkv6")
+         for n, o, i in RWKV6_PROJECTIONS] + \
+        [("wo-acsr-f32", 4096, 4096, "acsr", "f32", K1_COLUMNS, None),
+         ("wo-acsr-bf16", 4096, 4096, "acsr", "bf16", K1_COLUMNS, None),
+         ("wide-int32", 1024, 40000, "aida", "f32", K1_COLUMNS, None),
+         ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None)]
+    for name, n_out, n_in, mode, vdt, columns, layer_of in cases:
+        w = _k1_weight(gen, dev, n_out, n_in, name == "empty-rows")
+        layer = sfc.compress(w, mode=mode, density=0.25, dtype=vdt)
         b = layer.blocked
         if name == "wq":           # compression repeats bit for bit
             again = sfc.compress(w, mode=mode, density=0.25).blocked
             if not all(torch.equal(getattr(b, f), getattr(again, f)) for f
-                       in ("values", "col_idx", "row_nnz", "centroids")):
+                       in ("values", "col_idx", "row_nnz", "centroids",
+                           "chunk_off")):
                 raise AssertionError("compressing the same matrix twice on "
                                      "the card gave different containers")
             del again
+        if name == "wide-int32" and b.col_idx.dtype != torch.int32:
+            raise AssertionError("40000 columns should take int32 ids")
+        if name == "empty-rows" and int((b.row_nnz == 0).sum()) < 128:
+            raise AssertionError("the empty-rows case has no empty rows")
         act = "silu" if name == "gate" else None
         bias = torch.randn((n_out,), generator=gen, device=dev) \
-            if name == "wq" else None
+            if name in ("wq", "wide-int32") else None
         rows = b.nblocks * b.block_rows
         pb = None if bias is None else \
             torch.nn.functional.pad(bias, (0, rows - n_out))
         w_lib = sfc.dense_equivalent(layer).T.contiguous().to(torch.bfloat16)
         nnz = int(b.row_nnz.sum())
-        for batch in (4, 32):
+        for batch in columns:
             x = torch.randn((n_in, batch), generator=gen, device=dev)
-            out = sp.acsr_spmv(b, x, bias=bias, activation=act)
             plain = ref.blocked_acsr_spmv_ref(b.values, b.col_idx, b.row_nnz,
                                               x, b.centroids, pb, act)[:n_out]
-            torch.cuda.synchronize()
-            err = check_close(f"acsr_spmv {name} B={batch}", out, plain,
-                              1e-4, 1e-4)
-            max_err = max(max_err, err)
-            moved = nnz * (b.values.element_size()
-                           + b.col_idx.element_size()) + \
-                b.row_nnz.numel() * 4 + x.numel() * 4 + n_out * batch * 4 + \
-                (64 if b.centroids is not None else 0) + \
-                (n_out * 4 if bias is not None else 0)
-            bms, by = bound(moved, 2 * nnz * batch)
-            x_lib = x.T.contiguous().to(torch.bfloat16)
-            t_k, host = median_ms(lambda: sp.acsr_spmv(b, x, bias=bias,
-                                                       activation=act),
-                                  flush=flush)
-            t_p, _ = median_ms(lambda: ref.blocked_acsr_spmv_ref(
-                b.values, b.col_idx, b.row_nnz, x, b.centroids, pb, act),
-                iters=5, flush=flush)
-            t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
-                               flush=flush)
-            log(f"K1 {name:12s} {n_out}x{n_in} B={batch:2d} rmax={b.rmax} "
-                f"nnz={nnz} err={err:.2e} kernel_ms={t_k:.4f} "
-                f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-                f"bound_ms={bms:.4f} ({by}) host_enqueue_ms={host:.4f}")
-            if mode == "aida":     # one layer's seven projections
-                for key, v in zip(keys, (t_k, t_p, bms, t_l)):
-                    totals[batch][key] += v
-                totals[batch]["bound_by"] = by
+            calls = {("acsr_spmv_gather" if batch <= sp.GATHER_COLS
+                      else "acsr_spmv"):
+                     lambda: sp.acsr_spmv(b, x, bias=bias, activation=act)}
+            if batch <= sp.GATHER_COLS:      # the tensor-core variant too
+                calls["acsr_spmv"] = lambda: sp.spmv_mma(
+                    b, x, pb, act)[:n_out]
+            for kern, fn in calls.items():
+                out, out2 = fn(), fn()
+                torch.cuda.synchronize()
+                what = f"{kern} {name} B={batch}"
+                if not torch.equal(out, out2):
+                    raise AssertionError(f"{what}: a rerun differs")
+                err = check_close(what, out, plain, 1e-4, 1e-4)
+                errs[kern] = max(errs[kern], err)
+                if batch not in K1_TIMED:
+                    log(f"K1 {what} err={err:.2e} (rerun bit-identical)")
+                    continue
+                moved = nnz * (b.values.element_size()
+                               + b.col_idx.element_size()) + \
+                    b.row_nnz.numel() * 4 + x.numel() * 4 + \
+                    n_out * batch * 4 + \
+                    (64 if b.centroids is not None else 0) + \
+                    (n_out * 4 if bias is not None else 0)
+                bms, by = bound(moved, 2 * nnz * batch)
+                x_lib = x.T.contiguous().to(torch.bfloat16)
+                t_k, host = median_ms(fn, flush=flush)
+                t_p, _ = median_ms(lambda: ref.blocked_acsr_spmv_ref(
+                    b.values, b.col_idx, b.row_nnz, x, b.centroids, pb, act),
+                    iters=5, flush=flush)
+                t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
+                                   flush=flush)
+                log(f"K1 {what} {n_out}x{n_in} rmax={b.rmax} nnz={nnz} "
+                    f"err={err:.2e} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                    f"library_ms={t_l:.4f} bound_ms={bms:.4f} ({by}) "
+                    f"host_enqueue_ms={host:.4f} (rerun bit-identical)")
+                row = None
+                if layer_of == "llama":
+                    row = totals[(kern, batch)]
+                elif layer_of == "rwkv6" and kern == "acsr_spmv_gather":
+                    row = rwkv6
+                if row is not None:    # one layer's projections
+                    for key, v in zip(keys, (t_k, t_p, bms, t_l)):
+                        row[key] += v
+                    row["bound_by"] = by
         del w, layer, b, w_lib
-    for batch, row in totals.items():
-        log(f"K1 one layer (7 projections, B={batch}): "
+    for (kern, batch), row in totals.items():
+        log(f"K1 {kern} one layer (7 projections, B={batch}): "
             + " ".join(f"{k}={row[k]:.4f}" for k in keys))
-    return max_err, totals
+    log("K1 acsr_spmv_gather one rwkv6-7b layer (8 projections, B=4): "
+        + " ".join(f"{k}={rwkv6[k]:.4f}" for k in keys))
+    times = {"acsr_spmv": {32: totals[("acsr_spmv", 32)]},
+             "acsr_spmv_gather": {4: totals[("acsr_spmv_gather", 4)]}}
+    return errs, times, rwkv6
 
 
 # ------------------------------------------------------------------ K2
@@ -500,8 +568,15 @@ FLASH_CASES = [
     (4, 128, 2048, "bf16", False, None, None),
 ]
 # kernel vs plain version: both f32 over the same (bf16-exact) inputs,
-# summed in another order (tiles vs whole rows; dk / dv over G * T rows)
+# summed in another order (tiles vs whole rows; dk / dv over G * T rows);
+# K8's f32 operands enter its tensor-core products as bf16 hi + lo pairs,
+# each product within ~2^-16 of the exact one
 FLASH_TOL = {"o": 1e-4, "lse": 1e-4, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}
+# K8's max abs errors over FLASH_CASES when its five products ran as f32
+# FMAs out of shared memory (this phase on an H100 80GB HBM3 at 700 W),
+# logged beside this run's
+FLASH_ERR_FMA = {"dq": 8.940696716308594e-08, "dk": 1.1920928955078125e-07,
+                  "dv": 9.5367431640625e-07}
 
 
 def _flash_inputs(dev, gen, hkv, d, t, dtype, b=2, h=32):
@@ -562,6 +637,9 @@ def flash_phase(dev, flush):
     log(f"K7/K8 {len(FLASH_CASES)} cases agree (tolerance rtol = atol: "
         + ", ".join(f"{k} {v:g}" for k, v in FLASH_TOL.items())
         + "); dkv bit-identical on rerun in every case")
+    log("K8 max abs err over the cases (tensor cores, split bf16): "
+        + ", ".join(f"{k} {errs[k]:.3g} (f32 FMA: {v:.3g})"
+                    for k, v in FLASH_ERR_FMA.items()))
     return errs, flash_times(dev, flush)
 
 
@@ -866,15 +944,16 @@ def _llama(layers):
 
 
 def _launch_counters():
-    """The ten kernel wrappers, by the name the kernels line gives them."""
+    """The eleven kernel wrappers, by the name the kernels line gives them."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.acsr_spmv import acsr_spmv
+    from repro_torch.kernels.acsr_spmv import spmv_gather, spmv_mma
     from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.kernels.linear_scan import rwkv6_scan
     from repro_torch.kernels.lut_matmul import lut_matmul, lut_product_matmul
     from repro_torch.kvstore.paged_attention import (paged_attention,
                                                      paged_attention_chunk)
-    return {"acsr_spmv": acsr_spmv, "paged_attention_decode": paged_attention,
+    return {"acsr_spmv": spmv_mma, "acsr_spmv_gather": spmv_gather,
+            "paged_attention_decode": paged_attention,
             "paged_attention_chunk": paged_attention_chunk,
             "int8_matmul": int8_matmul, "lut_matmul": lut_matmul,
             **{name: getattr(fa, name) for name in FLASH},
@@ -915,7 +994,8 @@ def _serve(dev, eng, label, fc_kernel, chunk):
     before and read just after; checks 4/4 requests, finite logits, no
     leaked page and that every projection and layer went through the
     kernels.  Returns (results, session, launch counts, the FC kernel's
-    launches by rows: 4 on a decode step, 4 * chunk on a chunked one)."""
+    launches by kernel and rows: 4 on a decode step, 4 * chunk on a chunked
+    one)."""
     import torch
     sess = eng.session(batch_slots=4, max_len=256,
                        scheduler={"chunk": chunk})
@@ -940,9 +1020,17 @@ def _serve(dev, eng, label, fc_kernel, chunk):
         f"{dt * 1e3 / steps:.2f} ms/step, {n_tok / dt:.2f} tok/s, peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB while "
         "serving")
+    # the FC kernel's launches by kernel and rows: 4 on a decode step, 4 *
+    # chunk on a chunked one (K1: its gather variant up to 8 rows)
+    by_rows = {}
+    for rows, n in ((4, 7 * n_layers * (steps - pre)),
+                    (4 * chunk, 7 * n_layers * pre)):
+        kern = _fc_variant(fc_kernel, rows)
+        by_rows.setdefault(kern, {})
+        by_rows[kern][rows] = by_rows[kern].get(rows, 0) + n
     want = dict.fromkeys(fns, 0)
-    want.update({fc_kernel: 7 * n_layers * steps,
-                 "paged_attention_chunk": n_layers * pre,
+    want.update({k: sum(v.values()) for k, v in by_rows.items()})
+    want.update({"paged_attention_chunk": n_layers * pre,
                  "paged_attention_decode": n_layers * (steps - pre)})
     log(f"{label}: launches {json.dumps(counts)} (expected "
         f"{json.dumps(want)})")
@@ -956,8 +1044,16 @@ def _serve(dev, eng, label, fc_kernel, chunk):
         raise AssertionError(f"{label}: non-finite logits were emitted")
     if sess.alloc.in_use:
         raise AssertionError(f"{label}: {sess.alloc.in_use} pages leaked")
-    by_rows = {4: 7 * n_layers * (steps - pre), 4 * chunk: 7 * n_layers * pre}
     return res, sess, counts, by_rows
+
+
+def _fc_variant(fc_kernel, rows):
+    """The kernel an FC call of `rows` x columns launches: K1 takes its
+    gather variant up to GATHER_COLS columns, its tensor-core one beyond."""
+    from repro_torch.kernels.acsr_spmv import GATHER_COLS
+    if fc_kernel == "acsr_spmv" and rows <= GATHER_COLS:
+        return "acsr_spmv_gather"
+    return fc_kernel
 
 
 def _near_tie_flips(ref, margins, got, what):
@@ -982,7 +1078,7 @@ def serve_phase(dev, layers):
     chunk 1, then at chunk 8 (K3 on the chunked steps, K2 on the decode
     steps); the chunk-8 tokens must equal the chunk-1 ones up to near-tie
     flips.  Returns the chunk-8 serve's launch counts and K1's launches by
-    column count."""
+    variant and column count."""
     from repro_torch import CompressionSpec, Request
     cfg = _llama(layers)
     eng = _compressed_engine(dev, cfg, CompressionSpec(mode="aida",
@@ -1008,7 +1104,7 @@ def serve_phase(dev, layers):
 def fc_mode_serves(dev, layers):
     """Fresh int8 and codebook4 engines at full width serve the four
     requests at chunk 8 through K4 / K5.  Returns each one's FC kernel
-    launches by rows."""
+    launches by kernel and rows."""
     import gc
 
     import torch
@@ -1020,7 +1116,7 @@ def fc_mode_serves(dev, layers):
         torch.cuda.empty_cache()
         eng = _compressed_engine(dev, cfg, CompressionSpec(mode=mode),
                                  f"serve {mode}")
-        counts[kern] = _serve(dev, eng, f"serve {mode} chunk 8", kern, 8)[3]
+        counts.update(_serve(dev, eng, f"serve {mode} chunk 8", kern, 8)[3])
         del eng
     return counts
 
@@ -1491,7 +1587,8 @@ def rwkv6_serve_phase(dev, eng):
     """The rwkv6 aida serve at full width, 32 layers:
     ``eng.compress(aida 0.25).serve`` of the four requests (prompts fed
     token by token, no pages), every launch count set to 0 just before:
-    8 K1 launches per layer and step and nothing else."""
+    8 K1 launches per layer and step and nothing else.  Returns K1's
+    launches."""
     import torch
     from repro_torch import CompressionSpec, Request
     t0 = time.perf_counter()
@@ -1520,11 +1617,11 @@ def rwkv6_serve_phase(dev, eng):
     n_tok = sum(len(r.tokens) for r in res)
     log(f"serve rwkv6 aida: {len(res)}/4 requests, {n_tok} tokens, {steps} "
         f"steps, {dt * 1e3 / steps:.2f} ms/step, {n_tok / dt:.2f} tok/s, "
-        f"K1 {counts['acsr_spmv'] / steps:.0f} launches/step, peak "
+        f"K1 {counts['acsr_spmv_gather'] / steps:.0f} launches/step, peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB while "
         "serving")
     want = dict.fromkeys(fns, 0)
-    want["acsr_spmv"] = 8 * eng.cfg.n_layers * steps
+    want["acsr_spmv_gather"] = 8 * eng.cfg.n_layers * steps
     log(f"serve rwkv6 aida: launches {json.dumps(counts)} (expected "
         f"{json.dumps(want)})")
     log("serve rwkv6 aida: tokens "
@@ -1539,6 +1636,7 @@ def rwkv6_serve_phase(dev, eng):
     # one request: a decode step computes all four slots all the same, and
     # the profiler's events of a longer serve take long to collect
     trace_serve(eng, 1, n_req=1)
+    return counts["acsr_spmv_gather"]
 
 
 def rwkv6_cross_check(dev):
@@ -1628,8 +1726,9 @@ def main(argv=None) -> int:
     log(f"kernel build: {t_build:.2f} s ({len(build.SOURCES)} libraries)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, times = {}, {}
-    errs["acsr_spmv"], times["acsr_spmv"] = _timed("K1", k1_phase, dev,
-                                                    flush)
+    k1_errs, k1_times, k1_rwkv6 = _timed("K1", k1_phase, dev, flush)
+    errs.update(k1_errs)
+    times.update(k1_times)
     errs["paged_attention_decode"], times["paged_attention_decode"] = \
         _timed("K2", k2_phase, dev, flush)
     errs["paged_attention_chunk"], times["paged_attention_chunk"] = \
@@ -1650,9 +1749,8 @@ def main(argv=None) -> int:
     del flush
     layers = args.layers or 32
     launches, by_rows = _timed("serve aida", serve_phase, dev, layers)
-    by_rows = {"acsr_spmv": by_rows,
-               **_timed("serve int8 / codebook4", fc_mode_serves, dev,
-                        layers)}
+    by_rows.update(_timed("serve int8 / codebook4", fc_mode_serves, dev,
+                          layers))
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())
     launches["lut_matmul"] = sum(by_rows["lut_matmul"].values())
     train_counts = _timed("train", train_phase, dev, TRAIN_LAYERS)
@@ -1662,7 +1760,8 @@ def main(argv=None) -> int:
     _timed("train cross-check", train_cross_check, dev)
     eng, launches["rwkv6_scan"] = _timed("rwkv6 forward",
                                          rwkv6_forward_phase, dev)
-    _timed("rwkv6 serve", rwkv6_serve_phase, dev, eng)
+    k1_rwkv6["launches"] = _timed("rwkv6 serve", rwkv6_serve_phase, dev,
+                                  eng)
     del eng
     _timed("rwkv6 cross-check", rwkv6_cross_check, dev)
     launches["lut_product_matmul"] = sum(k6_launches.values())
@@ -1673,10 +1772,15 @@ def main(argv=None) -> int:
                "source": f"src/repro_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": errs[name]}
-        if name in by_rows:   # FC kernels: per layer, at 4 and 32 rows
+        if name in by_rows:   # FC kernels: per layer, at the main path's rows
             row.update(_by_shape(times[name], by_rows[name]))
         else:
             row.update(times[name])
+        if name == "acsr_spmv_gather":   # and per rwkv6-7b layer, 4 columns
+            for s in row["shapes"]:
+                s["model"] = "llama3-8b"
+            row["shapes"].append({"rows": 4, "model": "rwkv6-7b",
+                                  **k1_rwkv6})
         kernels.append(row)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

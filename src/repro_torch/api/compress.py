@@ -45,7 +45,8 @@ def _stack_compressed(per_layer: List[sfc.CompressedFC]) -> sfc.CompressedFC:
             row_nnz=stk([b.row_nnz for b in bs], pad_slots=False),
             shape=b0.shape, block_rows=b0.block_rows, nnz=-1,
             centroids=(None if b0.centroids is None
-                       else torch.stack([b.centroids for b in bs])))
+                       else torch.stack([b.centroids for b in bs])),
+            chunk_off=stk([b.chunk_off for b in bs], pad_slots=False))
         return sfc.CompressedFC(mode=mode, shape=per_layer[0].shape,
                                 blocked=blocked)
 

@@ -105,7 +105,8 @@ def to_device(tree: Any, device) -> Any:
                            to_device(tree.col_idx, device),
                            to_device(tree.row_nnz, device), tree.shape,
                            tree.block_rows, tree.nnz,
-                           to_device(tree.centroids, device))
+                           to_device(tree.centroids, device),
+                           to_device(tree.chunk_off, device))
     if isinstance(tree, (PagedKV, OptState, TrainState)):
         return type(tree)(*(to_device(a, device) for a in tree))
     if isinstance(tree, dict):

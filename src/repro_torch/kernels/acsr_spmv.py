@@ -9,15 +9,25 @@ every row in the block::
     col_idx: [nblocks, rmax, block_rows]
     row_nnz: [nblocks, block_rows]         slot >= row_nnz is padding
 
-:func:`acsr_spmv` computes ``act(W @ x + bias)`` through the hand-written
-CUDA kernel ``csrc/acsr_spmv.cu`` for tensors on the card, and through its
-plain version (``kernels.ref.blocked_acsr_spmv_ref``) for tensors on the
-CPU.  The encoder runs in torch on whatever device holds the weights.
+A row's live slots hold its columns in ascending order: both encoders take
+the nonzeros in row-major ``nonzero`` order.  So a row's slots of one K
+tile of ``CHUNK_COLS`` columns are one run, and ``chunk_off`` (derived from
+col_idx and row_nnz whenever a container is made) records where each run
+starts: the tensor-core kernel walks a row tile by tile from it, and
+splits K across blocks at tile boundaries.
+
+:func:`acsr_spmv` computes ``act(W @ x + bias)`` through one of the two
+hand-written CUDA kernels of ``csrc/acsr_spmv.cu`` for tensors on the card
+(a gather kernel for x of at most 8 columns, a tensor-core kernel for
+wider x), and through their plain version
+(``kernels.ref.blocked_acsr_spmv_ref``) for tensors on the CPU.  The
+encoder runs in torch on whatever device holds the weights.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,11 +38,34 @@ from repro_torch.kernels import ref
 
 _VALUE_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _COL_KINDS = {torch.int16: 0, torch.int32: 1}
-_MAX_BATCH_CHUNK = 8          # batch columns per kernel pass (MAXB in .cu)
+CHUNK_COLS = 64       # columns per chunk_off step: the kernel's K tile (KT)
+_GROUP = 32           # x columns per pass over the weights (GROUP in .cu)
+_ROWS = 64            # matrix rows per CUDA block (ROWS in .cu)
+GATHER_COLS = 8       # x columns up to which the gather variant runs (MAXB)
 
 
 def cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+def chunk_offsets(col_idx: torch.Tensor, row_nnz: torch.Tensor,
+                  n_cols: int) -> torch.Tensor:
+    """[..., nblocks, nck + 1, block_rows] int32, nck = ceil(n_cols /
+    CHUNK_COLS): entry c is the number of a row's live slots whose column
+    is below c * CHUNK_COLS, which (columns ascending) is the first slot at
+    or past that column; entry nck is row_nnz.  Works on stacked
+    containers and on any device."""
+    rmax = col_idx.shape[-2]
+    nck = max(1, cdiv(n_cols, CHUNK_COLS))
+    slot = torch.arange(rmax, device=col_idx.device)[:, None]
+    live = slot < row_nnz.unsqueeze(-2)
+    chunk = torch.where(live, (col_idx.long() // CHUNK_COLS).clamp(0, nck - 1),
+                        nck)
+    counts = torch.zeros((*col_idx.shape[:-2], nck + 1, col_idx.shape[-1]),
+                         dtype=torch.int32, device=col_idx.device)
+    counts.scatter_add_(-2, chunk, torch.ones_like(chunk, dtype=torch.int32))
+    return (torch.cumsum(counts, dim=-2, dtype=torch.int32)
+            - counts).contiguous()
 
 
 @dataclasses.dataclass
@@ -43,6 +76,8 @@ class BlockedACSR:
              ``centroids`` ([16] f32) is set
     col_idx: [nblocks, rmax, block_rows] int16 (n_cols < 2**15) or int32
     row_nnz: [nblocks, block_rows] int32
+    chunk_off: [nblocks, nck + 1, block_rows] int32 (:func:`chunk_offsets`,
+             derived from col_idx and row_nnz when not given)
     A stack over layers puts [L] in front of every array (and [L, 16]
     centroids) and records ``nnz = -1``."""
     values: torch.Tensor
@@ -52,6 +87,12 @@ class BlockedACSR:
     block_rows: int
     nnz: int
     centroids: Optional[torch.Tensor] = None
+    chunk_off: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.chunk_off is None:
+            self.chunk_off = chunk_offsets(self.col_idx, self.row_nnz,
+                                           self.shape[1])
 
     @property
     def nblocks(self) -> int:
@@ -66,7 +107,7 @@ class BlockedACSR:
         """View of layer ``i`` of a stacked container (no copy)."""
         return dataclasses.replace(
             self, values=self.values[i], col_idx=self.col_idx[i],
-            row_nnz=self.row_nnz[i],
+            row_nnz=self.row_nnz[i], chunk_off=self.chunk_off[i],
             centroids=None if self.centroids is None else self.centroids[i])
 
 
@@ -120,12 +161,28 @@ def block_encode_coded(dense: torch.Tensor, centroids: torch.Tensor,
 
 
 # --------------------------------------------------------------- kernel
-def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
-            activation: Optional[str]) -> torch.Tensor:
-    vals, cols, nnz = b.values, b.col_idx, b.row_nnz
+@functools.lru_cache(maxsize=None)
+def split_plan(nrows: int, nck: int, sms: int) -> Tuple[int, int]:
+    """(nsplit, chunks per split) for K split at chunk boundaries: the
+    split whose waves of blocks (two fit on an SM) times the tiles a block
+    walks, plus about four tiles of set-up, is least; fewer splits win a
+    tie."""
+    rblocks = cdiv(nrows, _ROWS)
+    best = None
+    for per in range(nck, 0, -1):
+        nsplit = cdiv(nck, per)
+        cost = cdiv(rblocks * nsplit, 2 * sms) * (per + 4)
+        if best is None or cost < best[0]:
+            best = (cost, nsplit, per)
+    return best[1], best[2]
+
+
+def _check(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
+           activation: Optional[str]) -> None:
+    """What the CUDA kernels take; raises on anything else."""
+    vals, cols, nnz, off = b.values, b.col_idx, b.row_nnz, b.chunk_off
     nb, rmax, br = vals.shape
-    k, bsz = x2d.shape
-    dev = x2d.device
+    k = x2d.shape[0]
     if vals.dtype not in _VALUE_KINDS or cols.dtype not in _COL_KINDS:
         raise TypeError(f"acsr_spmv takes uint8/f32/bf16 values and "
                         f"int16/int32 col_idx, got {vals.dtype}, "
@@ -141,17 +198,53 @@ def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
         raise TypeError(f"x must be f32, got {x2d.dtype}")
     if k != b.shape[1]:
         raise ValueError(f"x has {k} rows for a matrix of {b.shape[1]} cols")
-    tensors = [vals, cols, nnz, x2d] + ([b.centroids] if coded else []) + \
-        ([bias] if bias is not None else [])
+    tensors = [vals, cols, nnz, off, x2d] + \
+        ([b.centroids] if coded else []) + ([bias] if bias is not None else [])
     for t in tensors:
-        if t.device != dev or not t.is_contiguous():
+        if t.device != x2d.device or not t.is_contiguous():
             raise ValueError("acsr_spmv operands must be contiguous and on "
                              "one device")
+    if vals.data_ptr() % 16 or cols.data_ptr() % 16:
+        raise ValueError("acsr_spmv copies the slot stream in 16-byte "
+                         "pieces: values and col_idx must be 16-byte "
+                         "aligned")
     if nnz.dtype != torch.int32 or nnz.shape != (nb, br):
         raise TypeError("row_nnz must be int32 [nblocks, block_rows]")
+    nck = max(1, cdiv(k, CHUNK_COLS))
+    if off.dtype != torch.int32 or off.shape != (nb, nck + 1, br):
+        raise TypeError(f"chunk_off must be int32 [nblocks, {nck + 1}, "
+                        f"block_rows]")
     if coded and (b.centroids.dtype != torch.float32
                   or b.centroids.numel() != 16):
         raise TypeError("centroids must be f32 [16]")
+
+
+def _fn(name: str, n_ptr: int, n_int: int):
+    fn = getattr(build.library("acsr_spmv"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptrs(b: BlockedACSR, x2d, bias, out, part, with_off: bool):
+    return ([b.values.data_ptr(), b.col_idx.data_ptr(), b.row_nnz.data_ptr()]
+            + ([b.chunk_off.data_ptr()] if with_off else [])
+            + [None if b.centroids is None else b.centroids.data_ptr(),
+               x2d.data_ptr(), None if bias is None else bias.data_ptr(),
+               out.data_ptr(), part.data_ptr()])
+
+
+def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,
+                bias: Optional[torch.Tensor],
+                activation: Optional[str]) -> torch.Tensor:
+    """The variant for x of at most GATHER_COLS columns (a decode step):
+    one thread a row gathers x from L2 per slot.  Returns [nblocks *
+    block_rows, B] f32."""
+    nb, rmax, br = b.values.shape
+    bsz = x2d.shape[1]
+    dev = x2d.device
     sy = max(1, 512 // br)
     # split the slot axis across blocks until the card has ~2 blocks per SM
     # (few row blocks otherwise leave most SMs idle), keeping >= 4 slots
@@ -161,25 +254,48 @@ def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
     per_split = cdiv(rmax, nsplit)
     nsplit = cdiv(rmax, per_split)
     out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
-    part = torch.empty((nsplit * nb * br * min(bsz, _MAX_BATCH_CHUNK)
+    part = torch.empty((nsplit * nb * br * bsz if nsplit > 1 else 1,),
+                       dtype=torch.float32, device=dev)
+    status = _fn("acsr_spmv_gather_launch", 8, 10)(
+        *_ptrs(b, x2d, bias, out, part, with_off=False),
+        _VALUE_KINDS[b.values.dtype], _COL_KINDS[b.col_idx.dtype], nb, rmax,
+        br, sy, bsz, nsplit, per_split, ref.ACT_CODES[activation],
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "acsr_spmv_gather")
+    spmv_gather.launches += 1
+    return out
+
+
+def spmv_mma(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
+             activation: Optional[str]) -> torch.Tensor:
+    """The tensor-core variant: sparse tiles expanded in shared memory and
+    multiplied by `mma.sync`, 32 columns a pass over the weights.  Returns
+    [nblocks * block_rows, B] f32."""
+    nb, rmax, br = b.values.shape
+    k, bsz = x2d.shape
+    dev = x2d.device
+    nck = max(1, cdiv(k, CHUNK_COLS))
+    nsplit, per = split_plan(nb * br, nck, build.sm_count(dev))
+    out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
+    part = torch.empty((nsplit * nb * br * min(bsz, _GROUP)
                         if nsplit > 1 else 1,),
                        dtype=torch.float32, device=dev)
-    fn = build.library("acsr_spmv").acsr_spmv_launch
-    if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 8 + [ctypes.c_int] * 10 + [ptr]
-        fn.restype = ctypes.c_int
-    status = fn(vals.data_ptr(), cols.data_ptr(), nnz.data_ptr(),
-                b.centroids.data_ptr() if coded else None,
-                x2d.data_ptr(), bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), part.data_ptr(),
-                _VALUE_KINDS[vals.dtype], _COL_KINDS[cols.dtype],
-                nb, rmax, br, sy, bsz, nsplit, per_split,
-                ref.ACT_CODES[activation],
-                torch.cuda.current_stream(dev).cuda_stream)
-    build.check(status, "acsr_spmv")
-    acsr_spmv.launches += 1
+    status = _fn("acsr_spmv_mma_launch", 9, 12)(
+        *_ptrs(b, x2d, bias, out, part, with_off=True),
+        _VALUE_KINDS[b.values.dtype], _COL_KINDS[b.col_idx.dtype], nb, rmax,
+        br, k, bsz, nck, CHUNK_COLS, per, nsplit, ref.ACT_CODES[activation],
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "acsr_spmv_mma")
+    spmv_mma.launches += 1
     return out
+
+
+def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
+            activation: Optional[str]) -> torch.Tensor:
+    """Check the operands, then launch the variant for x's width."""
+    _check(b, x2d, bias, activation)
+    kern = spmv_gather if x2d.shape[1] <= GATHER_COLS else spmv_mma
+    return kern(b, x2d, bias, activation)
 
 
 def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
@@ -190,7 +306,10 @@ def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
     x: [K] or [K, B] f32; bias: [n_rows] (or padded to nblocks*block_rows)
     broadcast over B.  Returns [n_rows] / [n_rows, B] f32.  A CUDA tensor
     launches the CUDA kernel (or raises); a CPU tensor takes the plain
-    version."""
+    version: x of at most GATHER_COLS columns takes :func:`spmv_gather`,
+    wider x :func:`spmv_mma`.  The tensor-core variant relies on each row's
+    live slots holding ascending columns, as both encoders and the bridged
+    reference containers do."""
     squeeze = x.ndim == 1
     x2d = x[:, None] if squeeze else x
     rows = b.nblocks * b.block_rows
@@ -208,4 +327,5 @@ def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
     return out[:, 0] if squeeze else out
 
 
-acsr_spmv.launches = 0
+spmv_gather.launches = 0
+spmv_mma.launches = 0

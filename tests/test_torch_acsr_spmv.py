@@ -1,6 +1,8 @@
 """Port parity: blocked-ACSR encoding, pruning, k-means and the K1 SpMV
 wrapper (CPU path = its plain version) against the JAX package, on the
 same numpy inputs.  The JAX kernel runs in Pallas interpret mode."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,3 +145,129 @@ def test_compress_matches_reference(mode):
     np.testing.assert_allclose(tsfc.dense_equivalent(out).numpy(),
                                jsfc.dense_equivalent(ref), atol=1e-5)
 
+
+
+# ------------------------------------------------ the CUDA kernel's plan
+def _ascending(b):
+    """Every row's live slots hold strictly ascending columns."""
+    cols = b.col_idx.long()
+    live = torch.arange(b.rmax)[None, :, None] < b.row_nnz[:, None, :]
+    step = cols[:, 1:] - cols[:, :-1]
+    both = live[:, 1:] & live[:, :-1]
+    return bool((step[both] > 0).all())
+
+
+def _chunk_recount(b, n_cols):
+    """chunk_off recounted in numpy, slot by slot."""
+    cols, nnz = b.col_idx.numpy(), b.row_nnz.numpy()
+    nb, _, br = cols.shape
+    nck = max(1, -(-n_cols // tsp.CHUNK_COLS))
+    out = np.zeros((nb, nck + 1, br), np.int64)
+    for blk in range(nb):
+        for lane in range(br):
+            live = cols[blk, : nnz[blk, lane], lane].astype(np.int64)
+            for c in range(nck + 1):
+                out[blk, c, lane] = int((live < c * tsp.CHUNK_COLS).sum())
+    return out
+
+
+@pytest.mark.parametrize("shape,block_rows,density", [
+    ((200, 96), 128, 0.3), ((130, 700), 64, 0.25), ((64, 40000), 32, 0.02),
+    ((33, 513), 32, 0.9), ((96, 256), 32, 1.0)])
+def test_rows_ascend_and_chunk_offsets_recount(shape, block_rows, density):
+    """The kernel walks a row through K tile by tile, so each row's live
+    slots must hold ascending columns: in the port's two encoders and in a
+    container bridged from the reference's encoder.  chunk_off, derived
+    when each container is made, equals a slot-by-slot recount."""
+    rng = np.random.default_rng(7)
+    w = _pruned(rng, shape, density)
+    w[::5] = 0.0                                   # rows with no slot
+    cents = np.concatenate([[0.0], np.sort(rng.normal(size=15))]
+                           ).astype(np.float32)
+    made = [tsp.block_encode(torch.from_numpy(w), block_rows),
+            tsp.block_encode(torch.from_numpy(w), block_rows,
+                             value_dtype="bf16"),
+            tsp.block_encode_coded(torch.from_numpy(w),
+                                   torch.from_numpy(cents), block_rows),
+            bridge.from_reference(jax.tree.map(
+                np.asarray, jsp.block_encode(w, block_rows)))]
+    want = _chunk_recount(made[0], shape[1])
+    for b in made:
+        assert _ascending(b)
+        assert b.chunk_off.dtype == torch.int32
+        np.testing.assert_array_equal(b.chunk_off.numpy(), want)
+        np.testing.assert_array_equal(b.chunk_off[:, -1].numpy(),
+                                      b.row_nnz.numpy())
+
+
+def test_chunk_offsets_follow_stacks_views_and_moves():
+    """A stacked container (uniform slot depth across layers) carries each
+    layer's chunk_off; a layer view and a move to another device keep
+    it."""
+    from repro_torch.api.compress import _stack_compressed
+    rng = np.random.default_rng(8)
+    layers = [tsfc.compress(torch.from_numpy(_pruned(rng, (160, 600), d)),
+                            mode="aida", density=d, kmeans_iters=3)
+              for d in (0.1, 0.3)]
+    stack = _stack_compressed(layers).blocked
+    assert stack.chunk_off.shape == (2, *layers[0].blocked.chunk_off.shape)
+    for i, c in enumerate(layers):
+        view = stack.layer(i)
+        assert torch.equal(view.chunk_off, c.blocked.chunk_off)
+        assert torch.equal(view.chunk_off,
+                           tsp.chunk_offsets(view.col_idx, view.row_nnz,
+                                             view.shape[1]))
+    moved = bridge.to_device(stack, "cpu")
+    assert torch.equal(moved.chunk_off, stack.chunk_off)
+
+
+@pytest.mark.parametrize("nrows,nck", [(4096, 16), (1024, 16), (14336, 16),
+                                       (4096, 56), (1024, 157), (64, 1),
+                                       (100000, 3)])
+def test_split_plan_covers_every_chunk_once(nrows, nck):
+    """K splits at chunk boundaries: nsplit ranges of `per` chunks cover
+    chunks [0, nck) once each, none empty."""
+    nsplit, per = tsp.split_plan(nrows, nck, 132)
+    assert 1 <= nsplit <= nck and per >= 1
+    assert (nsplit - 1) * per < nck <= nsplit * per
+
+
+def test_launch_rejects_what_the_kernel_does_not_take():
+    """The CUDA launcher's checks run before any library is loaded: a slot
+    stream that is not 16-byte aligned (the kernel copies it in 16-byte
+    pieces) and a chunk_off of the wrong shape are refused."""
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(_pruned(rng, (128, 300)))
+    b = tsp.block_encode(w, 64, value_dtype="bf16")
+    x = torch.zeros((300, 4))
+    shifted = torch.zeros(b.values.numel() + 1, dtype=torch.bfloat16)
+    shifted[1:] = b.values.reshape(-1)
+    bad = dataclasses.replace(b, values=shifted[1:].view(b.values.shape),
+                              chunk_off=b.chunk_off)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsp._launch(bad, x, None, None)
+    bad = dataclasses.replace(b, chunk_off=b.chunk_off[:, :-1].contiguous())
+    with pytest.raises(TypeError, match="chunk_off"):
+        tsp._launch(bad, x, None, None)
+
+
+@pytest.mark.parametrize("batch,kernel", [(1, "spmv_gather"),
+                                          (8, "spmv_gather"),
+                                          (9, "spmv_mma"), (32, "spmv_mma"),
+                                          (40, "spmv_mma")])
+def test_launch_picks_the_variant_by_width(monkeypatch, batch, kernel):
+    """x of at most GATHER_COLS columns (a decode step) takes the gather
+    kernel, wider x (a chunked step) the tensor-core kernel; CPU tensors
+    reach neither launcher's counter."""
+    rng = np.random.default_rng(10)
+    b = tsp.block_encode(torch.from_numpy(_pruned(rng, (96, 200))), 32)
+    x = torch.zeros((200, batch))
+    before = (tsp.spmv_gather.launches, tsp.spmv_mma.launches)
+    tsp.acsr_spmv(b, x)
+    assert (tsp.spmv_gather.launches, tsp.spmv_mma.launches) == before
+    called = []
+    for name in ("spmv_gather", "spmv_mma"):
+        monkeypatch.setattr(tsp, name, lambda *a, name=name: called.append(
+            name))
+    tsp._launch(b, x, None, None)
+    assert called == [kernel]
