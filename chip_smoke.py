@@ -8,12 +8,13 @@ Phases, each of which exits non-zero when it fails:
 1. build the seven CUDA libraries (eleven kernels) from
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) and print the
    card (nvidia-smi name, power limit);
-2. K1 (blocked-ACSR SpMV: a gather kernel up to 8 columns, a
-   tensor-core kernel beyond) against its plain version at the seven
-   llama3-8b projection geometries at 1, 4, 8, 12, 32 and 40 columns,
-   rwkv6-7b's eight at 4, acsr with f32 and bf16 values, 40000 columns
-   (int32 ids) and rows of row_nnz = 0, density 0.25; every call twice,
-   bit-identical;
+2. K1 (blocked-ACSR SpMV: a gather kernel up to 8 columns, a wide
+   kernel beyond, both summing a column in one order) against its plain
+   version at the seven llama3-8b projection geometries at 1, 4, 8, 12,
+   32 and 40 columns, rwkv6-7b's eight at 4, acsr with f32 and bf16
+   values, 40000 columns (int32 ids) and rows of row_nnz = 0, density
+   0.25; every call twice, bit-identical, and every column of every width
+   bit-identical to the same column run alone and among 4;
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row;
@@ -39,13 +40,17 @@ Phases, each of which exits non-zero when it fails:
    flushed) beside the least time the card needs for the same work;
 9. the serving path: llama3-8b at full width, ``Engine.compress(aida
    0.25)`` then four requests served at chunk 1 and at chunk 8 (tokens
-   equal up to near-tie flips), with every launch counted;
+   equal up to near-tie flips; the logits' drift logged, and which ops
+   give a row other bits among 4 rows than among 32), with every launch
+   counted;
 10. fresh int8 and codebook4 engines serve the same requests at chunk 8
     through K4 / K5;
 11. the training path: llama3-8b at full width, depth cut to 4 layers,
-    ``trainer.run(attn_impl="flash")`` for 4 steps on 2 x 2048 tokens
-    through K7 / K8 (exact launch counts, finite and falling loss), then
-    one profiled step;
+    ``trainer.run(attn_impl="flash", remat="dots")`` for 4 steps on 2 x
+    2048 tokens through K7 / K8 (exact launch counts: K7 twice a layer and
+    step, once forward and once in the recompute; finite and falling
+    loss; peak memory), then one profiled step, then the same steps under
+    ``remat="none"`` beside it;
 12. a reduced llama3-8b served on the card and on the CPU gives the same
     greedy tokens (or differs only at a near-tie), in all three modes, and
     trained 3 steps on both from the same state gives the same losses
@@ -85,7 +90,8 @@ BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
 # (H100 SXM boost clock); bounds K6's table look-ups
 SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
 KERNELS = [                        # (name, csrc file, TPU kernel replaced)
-    ("acsr_spmv", "acsr_spmv.cu", "src/repro/kernels/acsr_spmv.py:160"),
+    ("acsr_spmv_wide", "acsr_spmv.cu",
+     "src/repro/kernels/acsr_spmv.py:160"),
     ("acsr_spmv_gather", "acsr_spmv.cu",
      "src/repro/kernels/acsr_spmv.py:160"),
     ("paged_attention_decode", "paged_attention.cu",
@@ -169,9 +175,9 @@ RWKV6_PROJECTIONS = [              # rwkv6-7b: time mix, then channel mix
     ("tm.wg", 4096, 4096), ("tm.wo", 4096, 4096), ("cm.wk", 14336, 4096),
     ("cm.wv", 4096, 14336), ("cm.wr", 4096, 4096)]
 # column counts K1 is held at: 1 and 8 bound the gather variant; 12 and 40
-# take the tensor-core variant's 16-column pass and a second (8-column)
-# group after a 32-column one; 4 (decode) and 32 (a chunk-8 step of 4
-# slots) are the serve's, and timed
+# take the wide variant's 16-column pass and a second (8-column) group
+# after a 32-column one; 4 (decode) and 32 (a chunk-8 step of 4 slots) are
+# the serve's, and timed
 K1_COLUMNS = (1, 4, 8, 12, 32, 40)
 K1_TIMED = (4, 32)
 
@@ -185,26 +191,31 @@ def _k1_weight(gen, dev, n_out, n_in, empty_rows):
     return w
 
 
+def _k1_variant(batch):
+    from repro_torch.kernels.acsr_spmv import GATHER_COLS
+    return "acsr_spmv_gather" if batch <= GATHER_COLS else "acsr_spmv_wide"
+
+
 def k1_phase(dev, flush):
-    """K1's two variants (the gather kernel up to 8 columns, the
-    tensor-core kernel beyond) against their plain version (rtol = atol =
-    1e-4), each call run twice and bit-identical: llama3-8b's seven
-    projections (aida 0.25) at every column count of K1_COLUMNS, rwkv6-7b's
-    eight at 4 columns, and four more containers: acsr with f32 and with
-    bf16 values, 40000 columns (int32 ids) and rows of row_nnz = 0.  The
-    tensor-core variant is also held and timed at 4 columns (it serves a
-    last group of <= 8 columns).  Times at the serve's shapes.  Returns the
-    max errors and llama3-8b's per-layer totals by variant, and rwkv6-7b's
-    per-layer total at 4 columns."""
+    """K1's two variants (the gather kernel up to 8 columns, the wide
+    kernel beyond) against their plain version (rtol = atol = 1e-4), each
+    call run twice and bit-identical, and every column of every width
+    bit-identical to the same column run alone and among 4 (one sum order
+    a column): llama3-8b's seven projections (aida 0.25) at every column
+    count of K1_COLUMNS, rwkv6-7b's eight at 4 columns, and four more
+    containers: acsr with f32 and with bf16 values, 40000 columns (int32
+    ids) and rows of row_nnz = 0.  Times at the serve's shapes.  Returns
+    the max errors and llama3-8b's per-layer totals by variant, and
+    rwkv6-7b's per-layer total at 4 columns."""
     import torch
     from repro_torch.core import sparse_fc as sfc
     from repro_torch.kernels import acsr_spmv as sp
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"acsr_spmv": 0.0, "acsr_spmv_gather": 0.0}
+    errs = {"acsr_spmv_wide": 0.0, "acsr_spmv_gather": 0.0}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    totals = {(v, m): dict.fromkeys(keys, 0.0) for v, m in
-              (("acsr_spmv_gather", 4), ("acsr_spmv", 32), ("acsr_spmv", 4))}
+    totals = {(_k1_variant(m), m): dict.fromkeys(keys, 0.0)
+              for m in K1_TIMED}
     rwkv6 = dict.fromkeys(keys, 0.0)
     # (label, n_out, n_in, mode, value dtype, column counts, per-layer sum)
     cases = [(n, o, i, "aida", "f32", K1_COLUMNS, "llama")
@@ -215,6 +226,7 @@ def k1_phase(dev, flush):
          ("wo-acsr-bf16", 4096, 4096, "acsr", "bf16", K1_COLUMNS, None),
          ("wide-int32", 1024, 40000, "aida", "f32", K1_COLUMNS, None),
          ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None)]
+    n_same = 0
     for name, n_out, n_in, mode, vdt, columns, layer_of in cases:
         w = _k1_weight(gen, dev, n_out, n_in, name == "empty-rows")
         layer = sfc.compress(w, mode=mode, density=0.25, dtype=vdt)
@@ -239,62 +251,77 @@ def k1_phase(dev, flush):
             torch.nn.functional.pad(bias, (0, rows - n_out))
         w_lib = sfc.dense_equivalent(layer).T.contiguous().to(torch.bfloat16)
         nnz = int(b.row_nnz.sum())
+        xs = torch.randn((n_in, max(columns)), generator=gen, device=dev)
+
+        def run(x):
+            return sp.acsr_spmv(b, x.contiguous(), bias=bias, activation=act)
+        # every column alone and in fours: what each width must repeat
+        alone = torch.stack([run(xs[:, j]) for j in range(xs.shape[1])], 1)
+        fours = torch.cat([run(xs[:, j:j + 4])
+                           for j in range(0, xs.shape[1] - 3, 4)], 1)
         for batch in columns:
-            x = torch.randn((n_in, batch), generator=gen, device=dev)
+            x = xs[:, :batch].contiguous()
+            kern = _k1_variant(batch)
             plain = ref.blocked_acsr_spmv_ref(b.values, b.col_idx, b.row_nnz,
                                               x, b.centroids, pb, act)[:n_out]
-            calls = {("acsr_spmv_gather" if batch <= sp.GATHER_COLS
-                      else "acsr_spmv"):
-                     lambda: sp.acsr_spmv(b, x, bias=bias, activation=act)}
-            if batch <= sp.GATHER_COLS:      # the tensor-core variant too
-                calls["acsr_spmv"] = lambda: sp.spmv_mma(
-                    b, x, pb, act)[:n_out]
-            for kern, fn in calls.items():
-                out, out2 = fn(), fn()
-                torch.cuda.synchronize()
-                what = f"{kern} {name} B={batch}"
-                if not torch.equal(out, out2):
-                    raise AssertionError(f"{what}: a rerun differs")
-                err = check_close(what, out, plain, 1e-4, 1e-4)
-                errs[kern] = max(errs[kern], err)
-                if batch not in K1_TIMED:
-                    log(f"K1 {what} err={err:.2e} (rerun bit-identical)")
-                    continue
-                moved = nnz * (b.values.element_size()
-                               + b.col_idx.element_size()) + \
-                    b.row_nnz.numel() * 4 + x.numel() * 4 + \
-                    n_out * batch * 4 + \
-                    (64 if b.centroids is not None else 0) + \
-                    (n_out * 4 if bias is not None else 0)
-                bms, by = bound(moved, 2 * nnz * batch)
-                x_lib = x.T.contiguous().to(torch.bfloat16)
-                t_k, host = median_ms(fn, flush=flush)
-                t_p, _ = median_ms(lambda: ref.blocked_acsr_spmv_ref(
-                    b.values, b.col_idx, b.row_nnz, x, b.centroids, pb, act),
-                    iters=5, flush=flush)
-                t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
-                                   flush=flush)
-                log(f"K1 {what} {n_out}x{n_in} rmax={b.rmax} nnz={nnz} "
-                    f"err={err:.2e} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-                    f"library_ms={t_l:.4f} bound_ms={bms:.4f} ({by}) "
-                    f"host_enqueue_ms={host:.4f} (rerun bit-identical)")
-                row = None
-                if layer_of == "llama":
-                    row = totals[(kern, batch)]
-                elif layer_of == "rwkv6" and kern == "acsr_spmv_gather":
-                    row = rwkv6
-                if row is not None:    # one layer's projections
-                    for key, v in zip(keys, (t_k, t_p, bms, t_l)):
-                        row[key] += v
-                    row["bound_by"] = by
-        del w, layer, b, w_lib
+
+            def fn():
+                return run(x)
+            out, out2 = fn(), fn()
+            torch.cuda.synchronize()
+            what = f"{kern} {name} B={batch}"
+            if not torch.equal(out, out2):
+                raise AssertionError(f"{what}: a rerun differs")
+            n4 = min(batch, fours.shape[1])
+            if not (torch.equal(out, alone[:, :batch])
+                    and torch.equal(out[:, :n4], fours[:, :n4])):
+                bad = int((out != alone[:, :batch]).any(0).sum())
+                raise AssertionError(f"{what}: {bad} columns differ from the "
+                                     "same columns run alone or in fours")
+            n_same += 1
+            err = check_close(what, out, plain, 1e-4, 1e-4)
+            errs[kern] = max(errs[kern], err)
+            if batch not in K1_TIMED:
+                log(f"K1 {what} err={err:.2e} (rerun and every column "
+                    "bit-identical)")
+                continue
+            moved = nnz * (b.values.element_size()
+                           + b.col_idx.element_size()) + \
+                b.row_nnz.numel() * 4 + x.numel() * 4 + \
+                n_out * batch * 4 + \
+                (64 if b.centroids is not None else 0) + \
+                (n_out * 4 if bias is not None else 0)
+            bms, by = bound(moved, 2 * nnz * batch)
+            x_lib = x.T.contiguous().to(torch.bfloat16)
+            t_k, host = median_ms(fn, flush=flush)
+            t_p, _ = median_ms(lambda: ref.blocked_acsr_spmv_ref(
+                b.values, b.col_idx, b.row_nnz, x, b.centroids, pb, act),
+                iters=5, flush=flush)
+            t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
+                               flush=flush)
+            log(f"K1 {what} {n_out}x{n_in} rmax={b.rmax} nnz={nnz} "
+                f"err={err:.2e} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                f"library_ms={t_l:.4f} bound_ms={bms:.4f} ({by}) "
+                f"host_enqueue_ms={host:.4f} (rerun and every column "
+                "bit-identical)")
+            row = None
+            if layer_of == "llama":
+                row = totals[(kern, batch)]
+            elif layer_of == "rwkv6":
+                row = rwkv6
+            if row is not None:    # one layer's projections
+                for key, v in zip(keys, (t_k, t_p, bms, t_l)):
+                    row[key] += v
+                row["bound_by"] = by
+        del w, layer, b, w_lib, xs, alone, fours
+    log(f"K1: {n_same} products, every column of each bit-identical to the "
+        "same column run alone and among 4 (gather and wide variants)")
     for (kern, batch), row in totals.items():
         log(f"K1 {kern} one layer (7 projections, B={batch}): "
             + " ".join(f"{k}={row[k]:.4f}" for k in keys))
     log("K1 acsr_spmv_gather one rwkv6-7b layer (8 projections, B=4): "
         + " ".join(f"{k}={rwkv6[k]:.4f}" for k in keys))
-    times = {"acsr_spmv": {32: totals[("acsr_spmv", 32)]},
-             "acsr_spmv_gather": {4: totals[("acsr_spmv_gather", 4)]}}
+    times = {kern: {batch: row} for (kern, batch), row in totals.items()}
     return errs, times, rwkv6
 
 
@@ -569,8 +596,8 @@ FLASH_CASES = [
 ]
 # kernel vs plain version: both f32 over the same (bf16-exact) inputs,
 # summed in another order (tiles vs whole rows; dk / dv over G * T rows);
-# K8's f32 operands enter its tensor-core products as bf16 hi + lo pairs,
-# each product within ~2^-16 of the exact one
+# K7's and K8's f32 operands enter their tensor-core products as bf16
+# hi + lo pairs, each product within ~2^-16 of the exact one
 FLASH_TOL = {"o": 1e-4, "lse": 1e-4, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}
 # K8's max abs errors over FLASH_CASES when its five products ran as f32
 # FMAs out of shared memory (this phase on an H100 80GB HBM3 at 700 W),
@@ -637,6 +664,9 @@ def flash_phase(dev, flush):
     log(f"K7/K8 {len(FLASH_CASES)} cases agree (tolerance rtol = atol: "
         + ", ".join(f"{k} {v:g}" for k, v in FLASH_TOL.items())
         + "); dkv bit-identical on rerun in every case")
+    log(f"K7 max abs err over the cases (tensor cores, p as bf16 hi + lo): "
+        f"o {errs['o']:.3g}, lse {errs['lse']:.3g} (tolerance "
+        f"{FLASH_TOL['o']:g})")
     log("K8 max abs err over the cases (tensor cores, split bf16): "
         + ", ".join(f"{k} {errs[k]:.3g} (f32 FMA: {v:.3g})"
                     for k, v in FLASH_ERR_FMA.items()))
@@ -946,13 +976,13 @@ def _llama(layers):
 def _launch_counters():
     """The eleven kernel wrappers, by the name the kernels line gives them."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.acsr_spmv import spmv_gather, spmv_mma
+    from repro_torch.kernels.acsr_spmv import spmv_gather, spmv_wide
     from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.kernels.linear_scan import rwkv6_scan
     from repro_torch.kernels.lut_matmul import lut_matmul, lut_product_matmul
     from repro_torch.kvstore.paged_attention import (paged_attention,
                                                      paged_attention_chunk)
-    return {"acsr_spmv": spmv_mma, "acsr_spmv_gather": spmv_gather,
+    return {"acsr_spmv_wide": spmv_wide, "acsr_spmv_gather": spmv_gather,
             "paged_attention_decode": paged_attention,
             "paged_attention_chunk": paged_attention_chunk,
             "int8_matmul": int8_matmul, "lut_matmul": lut_matmul,
@@ -995,12 +1025,20 @@ def _serve(dev, eng, label, fc_kernel, chunk):
     leaked page and that every projection and layer went through the
     kernels.  Returns (results, session, launch counts, the FC kernel's
     launches by kernel and rows: 4 on a decode step, 4 * chunk on a chunked
-    one)."""
+    one); the session's ``emitted`` holds each request's logits rows."""
     import torch
     sess = eng.session(batch_slots=4, max_len=256,
                        scheduler={"chunk": chunk})
     for r in _requests(eng.cfg):
         sess.submit(r)
+    sess.emitted = {}
+    emit = sess._emit
+
+    def keep(i, logits_i):             # the row each token was drawn from
+        sess.emitted.setdefault(sess.slot_entry[i].req.rid, []).append(
+            logits_i.copy())
+        emit(i, logits_i)
+    sess._emit = keep
     fns = _launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
     for f in fns.values():
@@ -1048,12 +1086,10 @@ def _serve(dev, eng, label, fc_kernel, chunk):
 
 
 def _fc_variant(fc_kernel, rows):
-    """The kernel an FC call of `rows` x columns launches: K1 takes its
-    gather variant up to GATHER_COLS columns, its tensor-core one beyond."""
-    from repro_torch.kernels.acsr_spmv import GATHER_COLS
-    if fc_kernel == "acsr_spmv" and rows <= GATHER_COLS:
-        return "acsr_spmv_gather"
-    return fc_kernel
+    """The kernel an FC call of `rows` x columns launches: K1 ("acsr_spmv")
+    takes its gather variant up to GATHER_COLS columns, its wide one
+    beyond."""
+    return _k1_variant(rows) if fc_kernel == "acsr_spmv" else fc_kernel
 
 
 def _near_tie_flips(ref, margins, got, what):
@@ -1073,12 +1109,68 @@ def _near_tie_flips(ref, margins, got, what):
     return flips
 
 
+def _logit_drift(ref, ref_sess, got, got_sess):
+    """Max abs gap between two serves' logits rows, over each request's
+    tokens up to its first differing one (drawn from the same prefix)."""
+    import numpy as np
+    worst = 0.0
+    by_rid = {g.rid: g for g in got}
+    for r in ref:
+        g = by_rid[r.rid]
+        n = next((j for j, (a, b) in enumerate(zip(r.tokens, g.tokens))
+                  if a != b), len(r.tokens) - 1)
+        for j in range(n + 1):
+            worst = max(worst, float(np.abs(
+                ref_sess.emitted[r.rid][j] - got_sess.emitted[r.rid][j]).max()))
+    return worst
+
+
+def _row_count_probe(dev, eng):
+    """Which ops of a step give a row other bits among 32 rows (a chunk-8
+    step of 4 slots) than among 4 (a decode step), on the served weights:
+    each op's max abs gap between the two, per op."""
+    import torch
+    from repro_torch.kvstore.paged_attention import (paged_attention,
+                                                     paged_attention_chunk)
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+    p = eng.params
+    lay = tfm.layer_view(p["layers"], 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((32, eng.cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ops = {"rms_norm": lambda t: L.rms_norm(t, p["final_norm"]),
+           "K1 wq": lambda t: L.dense(t, lay["attn"]["wq"]),
+           "K1 mlp (gate silu * up, down)": lambda t: L.mlp(
+               t, lay["mlp"], eng.cfg.act),
+           "lm_head (_bf16_matmul, f32 cuBLAS)": lambda t: L._bf16_matmul(
+               t, p["lm_head"])}
+    gaps = {}
+    for name, op in ops.items():
+        whole = op(x).float()
+        fours = torch.cat([op(x[i:i + 4]) for i in range(0, 32, 4)]).float()
+        gaps[name] = float((whole - fours).abs().max())
+    # attention: a chunk of 8 queries (K3) against each query decoded alone
+    # at its position (K2), over one pool
+    q, pool, table, q_pos = _k3_inputs(dev, gen, 37, "bf16", 8)
+    scale = eng.cfg.head_dim ** -0.5
+    chunk = paged_attention_chunk(q, pool, table, q_pos, -1, scale=scale)
+    gaps["K3 chunk of 8 vs K2 a query"] = max(float((paged_attention(
+        q[:3, :, i].contiguous(), pool, table[:3].contiguous(),
+        q_pos[:3, i].contiguous(), -1, scale=scale)
+        - chunk[:3, :, i]).abs().max()) for i in range(8))
+    return gaps
+
+
 def serve_phase(dev, layers):
     """The slice's main path: the aida engine serves the four requests at
     chunk 1, then at chunk 8 (K3 on the chunked steps, K2 on the decode
     steps); the chunk-8 tokens must equal the chunk-1 ones up to near-tie
-    flips.  Returns the chunk-8 serve's launch counts and K1's launches by
-    variant and column count."""
+    flips.  K1 gives a column the same bits at every width, so what still
+    parts the two serves' logits is logged: their drift, and which ops
+    give a row other bits among 32 rows than among 4.  Returns the chunk-8
+    serve's launch counts and K1's launches by variant and column
+    count."""
     from repro_torch import CompressionSpec, Request
     cfg = _llama(layers)
     eng = _compressed_engine(dev, cfg, CompressionSpec(mode="aida",
@@ -1091,11 +1183,16 @@ def serve_phase(dev, layers):
         warm.run()
     ref, sess1, _, _ = _serve(dev, eng, "serve aida chunk 1", "acsr_spmv",
                               1)
-    got, _, counts, by_rows = _serve(dev, eng, "serve aida chunk 8",
-                                     "acsr_spmv", 8)
+    got, sess8, counts, by_rows = _serve(dev, eng, "serve aida chunk 8",
+                                         "acsr_spmv", 8)
+    drift = _logit_drift(ref, sess1, got, sess8)
     flips = _near_tie_flips(ref, sess1.margins, got, "chunk 8 vs chunk 1")
     log(f"serve: chunk-8 vs chunk-1 greedy tokens: "
-        f"{'identical' if not flips else f'{flips} near-tie flips'}")
+        f"{'identical' if not flips else f'{flips} near-tie flips'}; "
+        f"logits max abs drift {drift:.6g} over the shared prefixes")
+    log("serve: ops' max abs gap, a row among 32 rows vs among 4: "
+        + json.dumps(_row_count_probe(dev, eng)))
+    del sess1, sess8
     trace_serve(eng, 1)
     trace_serve(eng, 8)
     return counts, by_rows
@@ -1175,10 +1272,13 @@ def _train_config():
 
 def train_phase(dev, layers):
     """The training path at llama3-8b's full width: ``trainer.run`` with
-    ``attn_impl="flash"`` over 2 x 2048-token batches, every launch count
-    set to 0 just before and read just after.  Checks a finite loss that
-    falls, and K7 = dq = dkv = layers x steps launches (one microbatch, no
-    recompute).  Returns the launch counts."""
+    ``attn_impl="flash"`` and ``remat="dots"`` over 2 x 2048-token
+    batches, every launch count set to 0 just before and read just after.
+    Checks a finite loss that falls, and dq = dkv = layers x steps
+    launches, K7 twice that (one microbatch; "dots" keeps the projections'
+    outputs and recomputes the rest of each layer, K7 included, in the
+    backward).  Then the same steps under "none", for the memory "dots"
+    saves and the time it costs.  Returns the launch counts."""
     import gc
     import re
 
@@ -1212,6 +1312,7 @@ def train_phase(dev, layers):
     counts = {k: f.launches for k, f in fns.items()}
     want = dict.fromkeys(fns, 0)
     want.update(dict.fromkeys(FLASH, cfg.n_layers * TRAIN_STEPS))
+    want["flash_attention_fwd"] *= 2       # forward, and "dots" recompute
     losses = [loss for loss, _ in steps]
     log(f"train llama3-8b d_model {cfg.d_model}, {cfg.n_layers} layers, "
         f"B=2 T=2048: {TRAIN_STEPS} steps in {wall:.2f} s (init included), "
@@ -1221,14 +1322,45 @@ def train_phase(dev, layers):
         f"{json.dumps(want)})")
     if counts != want:
         raise AssertionError("the training path did not go through K7 / K8 "
-                             "once per layer and step")
+                             "as often as its layers, steps and remat say")
     if len(losses) != TRAIN_STEPS or not all(
             x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"train: non-finite losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall {losses}")
     trace_train(dev, cfg, tc, state, it)
+    del state
+    _remat_none_run(dev, cfg, steps)
     return counts
+
+
+def _remat_none_run(dev, cfg, dots_steps):
+    """The same steps with ``remat="none"`` (every activation kept): the
+    memory "dots" saves and the time its recompute costs, on this card."""
+    import dataclasses
+    import gc
+    import re
+
+    import torch
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    from repro_torch.train import trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = dataclasses.replace(_train_config(), remat="none")
+    it = DataIterator(cfg, PipelineConfig(seed=0, global_batch=2,
+                                          seq_len=2048))
+    lines = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.run(cfg, tc, it, TRAIN_STEPS, log_every=1, log=lines.append,
+                device=dev)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms = [float(re.search(r"(\d+)ms$", ln).group(1)) for ln in lines]
+    losses = [float(re.search(r"loss=(\S+)", ln).group(1)) for ln in lines]
+    same = losses == [loss for loss, _ in dots_steps]
+    log(f"train remat none (every activation kept): ms/step {ms}, losses "
+        f"{losses} ({'equal to' if same else 'unlike'} those of \"dots\"), "
+        f"peak {peak:.2f} GiB")
 
 
 def trace_train(dev, cfg, tc, state, it):

@@ -16,23 +16,31 @@
 // writes o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).  The
 // backward recomputes p = exp(s - lse), ds = p * (do . v - delta), times
 // 1 - (s / cap)^2 when capped; dq = ds @ k * scale, dk = ds^T @ q * scale,
-// dv = p^T @ do.  p is never rounded to bf16 (K8 carries it as a bf16
-// hi + lo pair, below).  The
-// kv head of query head h is h / G (G = H / Hkv): k and v are read in
-// place, never repeated.
+// dv = p^T @ do.  p is never rounded to bf16 (both carry it as a bf16
+// hi + lo pair, below).  The kv head of query head h is h / G (G = H /
+// Hkv): k and v are read in place, never repeated.
 //
 // What bounds it: operations.  At T = 2048, D = 128 each K / V element
 // read feeds 2 * 64 multiply-adds per tile, so the work (4 flops per open
 // (query, key) pair and head dim forward, 6 for dq, 8 for dkv) sits far
 // above the bytes, against the bf16 tensor-core peak.
 //
-// K7, the forward, runs its products as f32 FMAs out of shared memory:
-// 256 threads as 16 x 16, a thread owning rows ty + 16 i of the query tile
-// and columns tx + 16 j, tiles staged as f32 rows padded to D + 1 floats.
+// Both run every product on the tensor cores (`mma.sync` m16n8k16, bf16
+// operands, f32 accumulators, `ldmatrix` fragments; mma_tile.cuh).
 //
-// K8, the backward, runs all five products on the tensor cores
-// (`mma.sync` m16n8k16, bf16 operands, f32 accumulators, `ldmatrix`
-// fragments; mma_tile.cuh):
+// K7, the forward:
+//  * One block per (b, h, 64 queries), 4 warps, each owning 16 query rows
+//    whose q fragments stay in registers for the whole kv walk.
+//  * Per kv tile of 64 keys, s = q k^T lands in registers; scale, cap,
+//    mask (only on tiles the mask cuts) and the online max and sum run
+//    there, the row's four lanes combined by shuffles.
+//  * p stays f32: it enters p v as bf16 hi + lo A fragments built from
+//    the score accumulators in registers, never through shared memory.
+//  * bf16 K / V tiles are double-buffered with `cp.async`, so the next
+//    tile loads while this one computes; f32 ones are split into hi / lo
+//    planes through registers.
+//
+// K8, the backward:
 //  * dq: one block per (b, h, 64 queries); dkv: one per (b, kv head, 64
 //    keys).  Each open tile is two phases of 8 warps.  Phase 1 forms the
 //    64 x 64 scores q . k and do . v (dkv: their transposes k . q, v . do),
@@ -40,20 +48,21 @@
 //    bf16 planes.  Phase 2 multiplies them: dq += ds k; dv += p^T do and
 //    dk += ds^T q.  The next kv tile (dq) or q tile (dkv) is loaded into
 //    registers while the current one computes.
-//  * Precision: the reference keeps every operand in f32 and never rounds
-//    p, ds or do.  Here each f32 operand enters a product split into bf16
-//    hi + lo (mma_tile.cuh): two products where the other side is exact in
-//    bf16 (the bf16 q / k / v of training), three where both are f32 (p^T
-//    do always; everything for f32 inputs).  Each term is within ~2^-16 of
-//    the exact product and the sums are f32, against a tolerance of 1e-3.
 //  * dk / dv without atomics: a dkv block walks the G query heads of its
 //    group and their open q tiles in a fixed order, accumulating in
 //    registers, so a rerun is bit-identical; dq's block owns its rows.
-//  * Blocks are ordered heaviest first (dq: the last q tiles, which see the
-//    most keys; dkv: the first kv tiles) so the causal triangle's long
-//    blocks start early.
 //
 // Shared by both:
+//  * Precision: the reference keeps every operand in f32 and never rounds
+//    p, ds or do.  Here each f32 operand enters a product split into bf16
+//    hi + lo (mma_tile.cuh): one product where both sides are exact in
+//    bf16 (q k^T of the bf16 q / k / v of training), two where one side is,
+//    three where both are f32 (p^T do always; everything for f32 inputs).
+//    Each term is within ~2^-16 of the exact product and the sums are f32,
+//    against a tolerance of 1e-4 (K7) and 1e-3 (K8).
+//  * Blocks are ordered heaviest first (the forward and dq: the last q
+//    tiles, which see the most keys; dkv: the first kv tiles) so the
+//    causal triangle's long blocks start early.
 //  * Tiles the mask closes are skipped: the forward and dq walk only the
 //    kv tiles between the window's first key and the causal diagonal, dkv
 //    only the q tiles that can see its keys.  Every row reaches a valid
@@ -61,8 +70,9 @@
 //    exp(-1e30 - m) = 0 exactly, so skipping changes nothing.
 //  * Ragged T is masked in the kernel: rows and keys past T stage as 0,
 //    score -1e30, and are not stored.
-//  * Tiles need up to ~177 KB of shared memory at D = 128 (dkv, f32),
-//    above the 48 KB static limit: dynamic shared memory with the opt-in.
+//  * Tiles need up to ~177 KB of shared memory at D = 128 (dkv, f32; the
+//    forward 68 KB), above the 48 KB static limit: dynamic shared memory
+//    with the opt-in.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -74,30 +84,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int TX = 16, TY = 16, NT = TX * TY;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// max / sum over the 16 threads of a row (one half-warp)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 struct Params {
   int H, Hkv, T;
   int causal, window;  // window < 0: none
@@ -119,19 +105,6 @@ __device__ __forceinline__ float cap_score(float dot, const Params& p) {
   return s;
 }
 
-// rows [row0, row0 + nrows) of a [T, D] slab into dst (leading dim ld) as
-// f32; rows past T stage as 0.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int row0, int nrows, int t_len,
-                                      int tid) {
-  for (int e = tid; e < nrows * D; e += NT) {
-    const int r = e / D, c = e % D;
-    dst[r * ld + c] =
-        row0 + r < t_len ? to_f32<T>(src[(size_t)(row0 + r) * D + c]) : 0.f;
-  }
-}
-
 // kv tiles [lo, hi] that the mask leaves open for queries [q0, q0 + bq)
 __device__ __forceinline__ void kv_tiles(int q0, int bq, int bk,
                                          const Params& p, int& lo, int& hi) {
@@ -146,110 +119,6 @@ __device__ __forceinline__ void q_tiles(int k0, int bq, int bk,
   const int last = p.window >= 0 ? min(p.T - 1, k0 + bk - 2 + p.window)
                                  : p.T - 1;
   hi = last / bq;
-}
-
-// ------------------------------------------------------------------ K7
-// grid B * H * ceil(T / BQ), block (16, 16).
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(NT)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, Params p) {
-  constexpr int RI = BQ / TY, CJ = BK / TX, DJ = D / TX, LD = D + 1;
-  constexpr int LS = BK + 1;
-  extern __shared__ float sm[];
-  float* qs = sm;             // [BQ][LD]
-  float* ks = qs + BQ * LD;   // [BK][LD]
-  float* vs = ks + BK * LD;   // [BK][D]
-  float* ps = vs + BK * D;    // [BQ][LS]
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int nq = (p.T + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nq, q0 = (blockIdx.x % nq) * BQ;
-  const int b = bh / p.H, G = p.H / p.Hkv, hk = (bh % p.H) / G;
-  const size_t kv_off = (size_t)(b * p.Hkv + hk) * p.T * D;
-  stage<T, D>(qs, LD, q + (size_t)bh * p.T * D, q0, BQ, p.T, tid);
-
-  float m[RI], l[RI], acc[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-  int lo, hi;
-  kv_tiles(q0, BQ, BK, p, lo, hi);
-  for (int jt = lo; jt <= hi; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // previous tiles consumed
-    stage<T, D>(ks, LD, k + kv_off, k0, BK, p.T, tid);
-    stage<T, D>(vs, D, v + kv_off, k0, BK, p.T, tid);
-    __syncthreads();
-    float s[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[RI], c[CJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = qs[(ty + TY * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) c[j] = ks[(tx + TX * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + TY * i, qi = q0 + r;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float x = cap_score(s[i][j], p);
-        s[i][j] = valid(qi, k0 + tx + TX * j, p) ? x : NEG_INF;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], row_max(mt));
-      const float corr = expf(m[i] - mn);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float e = expf(s[i][j] - mn);
-        rs += e;
-        ps[r * LS + tx + TX * j] = e;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[c * D + tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float pr = ps[(ty + TY * i) * LS + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pr, vv[j], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qi = q0 + ty + TY * i;
-    if (qi >= p.T) continue;
-    const float lf = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((size_t)bh * p.T + qi) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + TX * j] = acc[i][j] / lf;
-    if (tx == 0) lse[(size_t)bh * p.T + qi] = m[i] + logf(lf);
-  }
 }
 
 // ------------------------------------------------------- K8 tensor cores
@@ -271,16 +140,16 @@ struct Ld {
 // A [64][D] tile of T (rows past T as 0) through registers: 16-byte pieces
 // loaded early (prefetch), stored later into the hi (and, for f32, lo)
 // planes.
-template <typename T, int D>
+template <typename T, int D, int N = NTH>
 struct TileLoad {
   static constexpr int CH = D * (int)sizeof(T) / 16;  // pieces per row
-  static constexpr int PER = BT * CH / NTH;
+  static constexpr int PER = BT * CH / N;
   uint4 r[PER];
   __device__ __forceinline__ void load(const T* src, int row0, int t_len,
                                        int tid) {
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int idx = tid + i * NTH, row = idx / CH, ch = idx % CH;
+      const int idx = tid + i * N, row = idx / CH, ch = idx % CH;
       r[i] = row0 + row < t_len
                  ? __ldg(reinterpret_cast<const uint4*>(
                              src + (size_t)(row0 + row) * D) + ch)
@@ -292,7 +161,7 @@ struct TileLoad {
     constexpr int LDD = Ld<D>::LDD;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int idx = tid + i * NTH, row = idx / CH, ch = idx % CH;
+      const int idx = tid + i * N, row = idx / CH, ch = idx % CH;
       if constexpr (std::is_same<T, float>::value) {
         uint2 h, l;
         mt::split2(__uint_as_float(r[i].x), __uint_as_float(r[i].y), h.x,
@@ -617,36 +486,232 @@ __global__ void __launch_bounds__(NTH, 1)
   }
 }
 
-// Tiles per head dim: (BQ, BK) of the forward.
+// ------------------------------------------------------------------ K7
+// grid B * H * ceil(T / 64) (the q tiles with most kv tiles first), block
+// 128: warp w owns query rows 16 w .. 16 w + 15 of the block's 64, and
+// keeps them in registers as mma A fragments for the whole kv walk.
+constexpr int FW = 4, FTH = 32 * FW;  // warps, threads of a K7 block
+
+// bf16 K7: the K and V tiles of keys [k0, k0 + 64) into the planes kd, vd
+// by cp.async, rows past T as zeros (scored -1e30, and 0 * v stays 0).
 template <int D>
-struct Tiles;
-template <>
-struct Tiles<32> {
-  static constexpr int FQ = 64, FK = 64;
-};
-template <>
-struct Tiles<64> {
-  static constexpr int FQ = 64, FK = 64;
-};
-template <>
-struct Tiles<128> {
-  static constexpr int FQ = 64, FK = 32;
-};
+__device__ __forceinline__ void issue_kv(const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, int k0,
+                                         int t_len, __nv_bfloat16* kd,
+                                         __nv_bfloat16* vd, int tid) {
+  constexpr int CH = D / 8, LDD = Ld<D>::LDD;  // 16-byte pieces a row
+#pragma unroll
+  for (int i = 0; i < BT * CH / FTH; ++i) {
+    const int idx = tid + i * FTH, row = idx / CH, ch = idx % CH;
+    const bool ok = k0 + row < t_len;
+    const size_t at = (size_t)(ok ? k0 + row : 0) * D + 8 * ch;
+    mt::cp_async16_zfill(kd + row * LDD + 8 * ch, k + at, ok);
+    mt::cp_async16_zfill(vd + row * LDD + 8 * ch, v + at, ok);
+  }
+}
+
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return (size_t)4 * BT * Ld<D>::LDD * 2;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FTH)
+    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int batch, Params p) {
+  constexpr bool S = std::is_same<T, float>::value;
+  constexpr int LDD = Ld<D>::LDD, KS = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // four planes: bf16, K and V of two stages (stage s: 2 s, 2 s + 1);
+  // f32, the hi and lo planes of K (0, 1) and of V (2, 3)
+  Carve cv{smem_raw};
+  __nv_bfloat16* pl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pl[i] = cv.take(BT * LDD);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int nq = (p.T + BT - 1) / BT, nbh = batch * p.H;
+  const int bh = blockIdx.x % nbh, q0 = (nq - 1 - blockIdx.x / nbh) * BT;
+  const int b = bh / p.H, G = p.H / p.Hkv, hk = (bh % p.H) / G;
+  const size_t kv_off = (size_t)(b * p.Hkv + hk) * p.T * D;
+  const T* kb = k + kv_off;
+  const T* vb = v + kv_off;
+
+  // this warp's q rows as A fragments (hi, and lo for f32 inputs), staged
+  // through planes 0 and 1
+  uint32_t qa[KS][4], ql[S ? KS : 1][4];
+  {
+    TileLoad<T, D, FTH> qt;
+    qt.load(q + (size_t)bh * p.T * D, q0, p.T, tid);
+    qt.store(pl[0], pl[1], tid);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    mt::load_a(qa[kk], pl[0], LDD, 16 * warp, 16 * kk, lane);
+    if constexpr (S) mt::load_a(ql[kk], pl[1], LDD, 16 * warp, 16 * kk, lane);
+  }
+  __syncthreads();
+
+  // rows g and g + 8 of the warp's 16: running max, sum and output
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+  zero<NO>(acc);
+  const int r0 = q0 + 16 * warp + g;
+  int lo, hi;
+  kv_tiles(q0, BT, BT, p, lo, hi);
+  if constexpr (!S) {
+    issue_kv<D>(kb, vb, lo * BT, p.T, pl[0], pl[1], tid);
+    mt::cp_commit();
+  }
+  for (int jt = lo; jt <= hi; ++jt) {
+    const int k0 = jt * BT;
+    const __nv_bfloat16 *kh, *kl = nullptr, *vh, *vl = nullptr;
+    if constexpr (S) {
+      // f32 inputs (off the training path): split into the hi / lo planes
+      // through registers, one tensor at a time
+      __syncthreads();  // previous tile's planes read
+      {
+        TileLoad<T, D, FTH> t;
+        t.load(kb, k0, p.T, tid);
+        t.store(pl[0], pl[1], tid);
+      }
+      {
+        TileLoad<T, D, FTH> t;
+        t.load(vb, k0, p.T, tid);
+        t.store(pl[2], pl[3], tid);
+      }
+      __syncthreads();
+      kh = pl[0];
+      kl = pl[1];
+      vh = pl[2];
+      vl = pl[3];
+    } else {
+      const int st = (jt - lo) & 1;
+      if (jt < hi)
+        issue_kv<D>(kb, vb, k0 + BT, p.T, pl[2 * (st ^ 1)],
+                    pl[2 * (st ^ 1) + 1], tid);
+      mt::cp_commit();
+      mt::cp_wait<1>();
+      __syncthreads();
+      kh = pl[2 * st];
+      vh = pl[2 * st + 1];
+    }
+
+    // s = q k^T: 16 rows x 64 keys, n-tile j holding keys 8 j .. 8 j + 7
+    float s[8][4];
+    zero<8>(s);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t yh[4], yl[4];
+        mt::load_b_nk(yh, kh, LDD, 16 * np, 16 * kk, lane);
+        if constexpr (S) mt::load_b_nk(yl, kl, LDD, 16 * np, 16 * kk, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mt::mma(s[2 * np + j], qa[kk], yh + 2 * j);
+          if constexpr (S) {
+            mt::mma(s[2 * np + j], qa[kk], yl + 2 * j);
+            mt::mma(s[2 * np + j], ql[kk], yh + 2 * j);
+          }
+        }
+      }
+
+    // scale, cap and mask; the online softmax of rows g (i = 0), g + 8
+    const bool open = k0 + BT <= p.T &&
+                      (!p.causal || k0 + BT - 1 <= q0) &&
+                      (p.window < 0 || q0 + BT - 1 - k0 < p.window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mt_ = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = cap_score(s[j][2 * i + e], p);
+          if (!open && !valid(r0 + 8 * i, k0 + 8 * j + 2 * cq + e, p))
+            x = NEG_INF;
+          s[j][2 * i + e] = x;
+          mt_ = fmaxf(mt_, x);
+        }
+      mt_ = fmaxf(mt_, __shfl_xor_sync(~0u, mt_, 1));
+      mt_ = fmaxf(mt_, __shfl_xor_sync(~0u, mt_, 2));
+      const float mn = fmaxf(m[i], mt_);
+      const float corr = expf(m[i] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pe = expf(s[j][2 * i + e] - mn);
+          s[j][2 * i + e] = pe;
+          rs += pe;
+        }
+      rs += __shfl_xor_sync(~0u, rs, 1);
+      rs += __shfl_xor_sync(~0u, rs, 2);
+      l[i] = l[i] * corr + rs;
+      m[i] = mn;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][2 * i] *= corr;
+        acc[j][2 * i + 1] *= corr;
+      }
+    }
+
+    // acc += p v: p (f32) as bf16 hi + lo A fragments straight from the
+    // score accumulators (keys 16 kk .. 16 kk + 15 are n-tiles 2 kk and
+    // 2 kk + 1), v as B
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[4], al[4];
+      mt::split2(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      mt::split2(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      mt::split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      mt::split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t yh[4], yl[4];
+        mt::load_b_kn(yh, vh, LDD, 16 * np, 16 * kk, lane);
+        if constexpr (S) mt::load_b_kn(yl, vl, LDD, 16 * np, 16 * kk, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mt::mma(acc[2 * np + j], ah, yh + 2 * j);
+          mt::mma(acc[2 * np + j], al, yh + 2 * j);
+          if constexpr (S) mt::mma(acc[2 * np + j], ah, yl + 2 * j);
+        }
+      }
+    }
+    if constexpr (!S) __syncthreads();  // stage st read: it may be refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= p.T) continue;
+    const float lf = fmaxf(l[i], 1e-30f);
+    float* row = o + ((size_t)bh * p.T + qi) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * cq) =
+          make_float2(acc[j][2 * i] / lf, acc[j][2 * i + 1] / lf);
+    if (cq == 0) lse[(size_t)bh * p.T + qi] = m[i] + logf(lf);
+  }
+}
 
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, float* o, float* lse,
         int batch, const Params& p, cudaStream_t stream) {
-  constexpr int BQ = Tiles<D>::FQ, BK = Tiles<D>::FK;
-  const size_t smem = sizeof(float) *
-                      (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-  auto kern = flash_fwd<T, D, BQ, BK>;
+  constexpr size_t smem = fwd_smem<T, D>();
+  auto kern = flash_fwd<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = batch * p.H * ((p.T + BQ - 1) / BQ);
-  kern<<<blocks, dim3(TX, TY), smem, stream>>>(
+  const int blocks = batch * p.H * ((p.T + BT - 1) / BT);
+  kern<<<blocks, FTH, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), o, lse, p);
+      static_cast<const T*>(v), o, lse, batch, p);
   return (int)cudaGetLastError();
 }
 

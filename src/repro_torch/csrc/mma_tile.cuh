@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by the blocked-ACSR SpMV (K1) and the
-// flash-attention backward (K8): bf16 `mma.sync` m16n8k16 with f32
-// accumulators, `ldmatrix` fragment loads from shared memory, `cp.async`,
-// and the split of an f32 value into two bf16 halves.
+// Tensor-core building blocks shared by the flash-attention forward (K7)
+// and backward (K8): bf16 `mma.sync` m16n8k16 with f32 accumulators,
+// `ldmatrix` fragment loads from shared memory, `cp.async` (also used by
+// the blocked-ACSR SpMV, K1), and the split of an f32 value into two bf16
+// halves.
 //
 // Split-bf16 precision.  An f32 value x is stored as hi = bf16(x) and
 // lo = bf16(x - hi): hi keeps the top 8 significant bits, lo the next 8,
@@ -126,6 +127,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
+}
+// 16 bytes from src, or 16 zero bytes when `valid` is false (src is then
+// not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

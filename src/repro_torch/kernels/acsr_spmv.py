@@ -13,13 +13,13 @@ A row's live slots hold its columns in ascending order: both encoders take
 the nonzeros in row-major ``nonzero`` order.  So a row's slots of one K
 tile of ``CHUNK_COLS`` columns are one run, and ``chunk_off`` (derived from
 col_idx and row_nnz whenever a container is made) records where each run
-starts: the tensor-core kernel walks a row tile by tile from it, and
-splits K across blocks at tile boundaries.
+starts: the wide kernel walks a row through x's tiles from it.
 
 :func:`acsr_spmv` computes ``act(W @ x + bias)`` through one of the two
 hand-written CUDA kernels of ``csrc/acsr_spmv.cu`` for tensors on the card
-(a gather kernel for x of at most 8 columns, a tensor-core kernel for
-wider x), and through their plain version
+(a gather kernel for x of at most 8 columns, a wide kernel for wider x,
+both summing each column in one order that :func:`split_plan` fixes),
+and through their plain version
 (``kernels.ref.blocked_acsr_spmv_ref``) for tensors on the CPU.  The
 encoder runs in torch on whatever device holds the weights.
 """
@@ -38,9 +38,8 @@ from repro_torch.kernels import ref
 
 _VALUE_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _COL_KINDS = {torch.int16: 0, torch.int32: 1}
-CHUNK_COLS = 64       # columns per chunk_off step: the kernel's K tile (KT)
-_GROUP = 32           # x columns per pass over the weights (GROUP in .cu)
-_ROWS = 64            # matrix rows per CUDA block (ROWS in .cu)
+CHUNK_COLS = 64       # columns per chunk_off step (CHUNK in .cu)
+_GROUP = 32           # x columns per pass of the wide variant (GROUP in .cu)
 GATHER_COLS = 8       # x columns up to which the gather variant runs (MAXB)
 
 
@@ -162,19 +161,18 @@ def block_encode_coded(dense: torch.Tensor, centroids: torch.Tensor,
 
 # --------------------------------------------------------------- kernel
 @functools.lru_cache(maxsize=None)
-def split_plan(nrows: int, nck: int, sms: int) -> Tuple[int, int]:
-    """(nsplit, chunks per split) for K split at chunk boundaries: the
-    split whose waves of blocks (two fit on an SM) times the tiles a block
-    walks, plus about four tiles of set-up, is least; fewer splits win a
-    tie."""
-    rblocks = cdiv(nrows, _ROWS)
-    best = None
-    for per in range(nck, 0, -1):
-        nsplit = cdiv(nck, per)
-        cost = cdiv(rblocks * nsplit, 2 * sms) * (per + 4)
-        if best is None or cost < best[0]:
-            best = (cost, nsplit, per)
-    return best[1], best[2]
+def split_plan(nb: int, rmax: int, br: int, sms: int) -> Tuple[int, int, int]:
+    """(sy, nsplit, per_split): the one split of the slot axis that both
+    K1 variants follow, so a column's sum order never depends on x's
+    width.  nsplit ranges of per_split slots (across blocks, partials added
+    in range order), each cut into sy interleaved parts (threads of a row,
+    added in part order).  Ranges are added until the card has ~2 blocks
+    of br * sy threads per SM (few row blocks otherwise leave most SMs
+    idle), keeping >= 4 slots per thread."""
+    sy = max(1, 512 // br)
+    nsplit = max(1, min(cdiv(2 * sms, nb), cdiv(rmax, 4 * sy)))
+    per = max(1, cdiv(rmax, nsplit))
+    return sy, max(1, cdiv(rmax, per)), per
 
 
 def _check(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
@@ -240,53 +238,48 @@ def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,
                 bias: Optional[torch.Tensor],
                 activation: Optional[str]) -> torch.Tensor:
     """The variant for x of at most GATHER_COLS columns (a decode step):
-    one thread a row gathers x from L2 per slot.  Returns [nblocks *
+    one thread a row part gathers x from L2 per slot.  Returns [nblocks *
     block_rows, B] f32."""
     nb, rmax, br = b.values.shape
     bsz = x2d.shape[1]
     dev = x2d.device
-    sy = max(1, 512 // br)
-    # split the slot axis across blocks until the card has ~2 blocks per SM
-    # (few row blocks otherwise leave most SMs idle), keeping >= 4 slots
-    # per thread
-    nsplit = max(1, min(cdiv(2 * build.sm_count(dev), nb),
-                        cdiv(rmax, 4 * sy)))
-    per_split = cdiv(rmax, nsplit)
-    nsplit = cdiv(rmax, per_split)
+    sy, nsplit, per = split_plan(nb, rmax, br, build.sm_count(dev))
     out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
     part = torch.empty((nsplit * nb * br * bsz if nsplit > 1 else 1,),
                        dtype=torch.float32, device=dev)
     status = _fn("acsr_spmv_gather_launch", 8, 10)(
         *_ptrs(b, x2d, bias, out, part, with_off=False),
         _VALUE_KINDS[b.values.dtype], _COL_KINDS[b.col_idx.dtype], nb, rmax,
-        br, sy, bsz, nsplit, per_split, ref.ACT_CODES[activation],
+        br, sy, bsz, nsplit, per, ref.ACT_CODES[activation],
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "acsr_spmv_gather")
     spmv_gather.launches += 1
     return out
 
 
-def spmv_mma(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
-             activation: Optional[str]) -> torch.Tensor:
-    """The tensor-core variant: sparse tiles expanded in shared memory and
-    multiplied by `mma.sync`, 32 columns a pass over the weights.  Returns
-    [nblocks * block_rows, B] f32."""
+def spmv_wide(b: BlockedACSR, x2d: torch.Tensor,
+              bias: Optional[torch.Tensor],
+              activation: Optional[str]) -> torch.Tensor:
+    """The variant for wider x (a chunked step): x staged in shared memory
+    tile by tile, up to 32 columns a pass over the weights, each column
+    summed as the gather variant sums it.  Returns [nblocks * block_rows,
+    B] f32."""
     nb, rmax, br = b.values.shape
     k, bsz = x2d.shape
     dev = x2d.device
     nck = max(1, cdiv(k, CHUNK_COLS))
-    nsplit, per = split_plan(nb * br, nck, build.sm_count(dev))
+    sy, nsplit, per = split_plan(nb, rmax, br, build.sm_count(dev))
     out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
     part = torch.empty((nsplit * nb * br * min(bsz, _GROUP)
                         if nsplit > 1 else 1,),
                        dtype=torch.float32, device=dev)
-    status = _fn("acsr_spmv_mma_launch", 9, 12)(
+    status = _fn("acsr_spmv_wide_launch", 9, 13)(
         *_ptrs(b, x2d, bias, out, part, with_off=True),
         _VALUE_KINDS[b.values.dtype], _COL_KINDS[b.col_idx.dtype], nb, rmax,
-        br, k, bsz, nck, CHUNK_COLS, per, nsplit, ref.ACT_CODES[activation],
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(status, "acsr_spmv_mma")
-    spmv_mma.launches += 1
+        br, sy, k, bsz, nck, CHUNK_COLS, nsplit, per,
+        ref.ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "acsr_spmv_wide")
+    spmv_wide.launches += 1
     return out
 
 
@@ -294,7 +287,7 @@ def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
             activation: Optional[str]) -> torch.Tensor:
     """Check the operands, then launch the variant for x's width."""
     _check(b, x2d, bias, activation)
-    kern = spmv_gather if x2d.shape[1] <= GATHER_COLS else spmv_mma
+    kern = spmv_gather if x2d.shape[1] <= GATHER_COLS else spmv_wide
     return kern(b, x2d, bias, activation)
 
 
@@ -307,9 +300,9 @@ def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
     broadcast over B.  Returns [n_rows] / [n_rows, B] f32.  A CUDA tensor
     launches the CUDA kernel (or raises); a CPU tensor takes the plain
     version: x of at most GATHER_COLS columns takes :func:`spmv_gather`,
-    wider x :func:`spmv_mma`.  The tensor-core variant relies on each row's
-    live slots holding ascending columns, as both encoders and the bridged
-    reference containers do."""
+    wider x :func:`spmv_wide`; both give each column the same bits.  The
+    wide variant relies on each row's live slots holding ascending columns,
+    as both encoders and the bridged reference containers do."""
     squeeze = x.ndim == 1
     x2d = x[:, None] if squeeze else x
     rows = b.nblocks * b.block_rows
@@ -328,4 +321,4 @@ def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
 
 
 spmv_gather.launches = 0
-spmv_mma.launches = 0
+spmv_wide.launches = 0

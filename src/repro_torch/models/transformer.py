@@ -8,10 +8,12 @@ no copies), so each layer's attention window is a static int.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
@@ -135,23 +137,37 @@ def block_forward(cfg: ArchConfig, p: Dict, x, positions, window: int,
     return x + h, aux
 
 
+# The reference's "dots" policy (``dots_with_no_batch_dims_saveable``):
+# keep the outputs of products with no batch dims, recompute the rest.
+# Every projection reaches ``aten.mm`` (``torch.matmul`` folds [B, T, D] @
+# [D, N] to one), so those are what a layer keeps; norms, casts, batched
+# attention products and the flash forward are recomputed in the backward.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
                   remat: str = "dots", attn_impl: str = "einsum"):
     """Every layer in turn -> (x, total aux).  ``remat="full"`` recomputes
-    each layer in the backward (``torch.utils.checkpoint``); "dots" and
-    "none" keep every activation (the JAX package's "dots" keeps only the
-    matmul outputs: same numbers, less memory there)."""
+    each layer in the backward (``torch.utils.checkpoint``); "dots" keeps
+    each layer's projection outputs and recomputes the rest; "none" keeps
+    every activation.  The three give the same numbers."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     windows = cfg.layer_windows()
     for p, window in zip(unstack(stacked, len(windows)), windows):
-        if remat == "full":
-            x, a = checkpoint(
-                block_forward, cfg, p, x, positions, window, attn_impl,
-                use_reentrant=False)
-        else:
+        if remat == "none":
             x, a = block_forward(cfg, p, x, positions, window, attn_impl)
+        else:
+            ctx = {} if remat == "full" else {"context_fn": functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)}
+            x, a = checkpoint(block_forward, cfg, p, x, positions, window,
+                              attn_impl, use_reentrant=False, **ctx)
         aux = aux + a
     return x, aux
 

@@ -225,17 +225,41 @@ def test_chunk_offsets_follow_stacks_views_and_moves():
                                        (4096, 56), (1024, 157), (64, 1),
                                        (100000, 3)])
 def test_split_plan_covers_every_chunk_once(nrows, nck):
-    """K splits at chunk boundaries: nsplit ranges of `per` chunks cover
-    chunks [0, nck) once each, none empty."""
-    nsplit, per = tsp.split_plan(nrows, nck, 132)
-    assert 1 <= nsplit <= nck and per >= 1
-    assert (nsplit - 1) * per < nck <= nsplit * per
+    """The slot axis splits into nsplit ranges of `per` slots that cover
+    slots [0, rmax) once each, none empty, at the geometry of nrows rows in
+    blocks of 128 with 16 slots (a density of 0.25) per 64-column chunk."""
+    rmax = 16 * nck
+    sy, nsplit, per = tsp.split_plan(tsp.cdiv(nrows, 128), rmax, 128, 132)
+    assert sy == 4 and 1 <= nsplit <= rmax and per >= 1
+    assert (nsplit - 1) * per < rmax <= nsplit * per
+
+
+@pytest.mark.parametrize("br", [32, 64, 96, 128, 256, 512])
+@pytest.mark.parametrize("nb,rmax", [(1, 8), (8, 1104), (32, 3600),
+                                     (112, 1104), (300, 40), (3, 1)])
+def test_split_plan_takes_no_width_and_covers_every_slot_once(br, nb, rmax):
+    """Both K1 variants take their split from one plan, a function of the
+    matrix geometry and the SM count and not of x's width, so a column is
+    summed in one order at every width: its parts cover every slot of a
+    range once, its ranges every slot once, and a block fits 512
+    threads."""
+    import inspect
+    assert list(inspect.signature(tsp.split_plan).parameters) == \
+        ["nb", "rmax", "br", "sms"]
+    sy, nsplit, per = tsp.split_plan(nb, rmax, br, 132)
+    assert 1 <= sy and br * sy <= 512
+    assert (nsplit - 1) * per < rmax <= nsplit * per
+    covered = sorted(s0 + t + i * sy for s0 in range(0, nsplit * per, per)
+                     for t in range(sy)
+                     for i in range(-(-(min(s0 + per, rmax) - s0 - t) // sy)))
+    assert covered == list(range(rmax))
 
 
 def test_launch_rejects_what_the_kernel_does_not_take():
     """The CUDA launcher's checks run before any library is loaded: a slot
     stream that is not 16-byte aligned (the kernel copies it in 16-byte
-    pieces) and a chunk_off of the wrong shape are refused."""
+    pieces), blocks of rows that are not a multiple of 32 (a warp's lanes
+    are rows) and a chunk_off of the wrong shape are refused."""
     rng = np.random.default_rng(9)
     w = torch.from_numpy(_pruned(rng, (128, 300)))
     b = tsp.block_encode(w, 64, value_dtype="bf16")
@@ -246,6 +270,9 @@ def test_launch_rejects_what_the_kernel_does_not_take():
                               chunk_off=b.chunk_off)
     with pytest.raises(ValueError, match="16-byte"):
         tsp._launch(bad, x, None, None)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tsp._launch(tsp.block_encode(w, 48, value_dtype="bf16"), x, None,
+                    None)
     bad = dataclasses.replace(b, chunk_off=b.chunk_off[:, :-1].contiguous())
     with pytest.raises(TypeError, match="chunk_off"):
         tsp._launch(bad, x, None, None)
@@ -253,21 +280,48 @@ def test_launch_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("batch,kernel", [(1, "spmv_gather"),
                                           (8, "spmv_gather"),
-                                          (9, "spmv_mma"), (32, "spmv_mma"),
-                                          (40, "spmv_mma")])
+                                          (9, "spmv_wide"), (32, "spmv_wide"),
+                                          (40, "spmv_wide")])
 def test_launch_picks_the_variant_by_width(monkeypatch, batch, kernel):
     """x of at most GATHER_COLS columns (a decode step) takes the gather
-    kernel, wider x (a chunked step) the tensor-core kernel; CPU tensors
-    reach neither launcher's counter."""
+    kernel, wider x (a chunked step) the wide kernel; CPU tensors reach
+    neither launcher's counter."""
     rng = np.random.default_rng(10)
     b = tsp.block_encode(torch.from_numpy(_pruned(rng, (96, 200))), 32)
     x = torch.zeros((200, batch))
-    before = (tsp.spmv_gather.launches, tsp.spmv_mma.launches)
+    before = (tsp.spmv_gather.launches, tsp.spmv_wide.launches)
     tsp.acsr_spmv(b, x)
-    assert (tsp.spmv_gather.launches, tsp.spmv_mma.launches) == before
+    assert (tsp.spmv_gather.launches, tsp.spmv_wide.launches) == before
     called = []
-    for name in ("spmv_gather", "spmv_mma"):
+    for name in ("spmv_gather", "spmv_wide"):
         monkeypatch.setattr(tsp, name, lambda *a, name=name: called.append(
             name))
     tsp._launch(b, x, None, None)
     assert called == [kernel]
+
+
+@pytest.mark.parametrize("mode,vdt", [("aida", "f32"), ("acsr", "f32"),
+                                      ("acsr", "bf16")])
+def test_plain_version_gives_a_column_the_same_bits_at_every_width(mode,
+                                                                   vdt):
+    """The plain version, like the kernels, sums a column the same way
+    whatever x's width: column j of a 32- or 40-column product equals the
+    same column computed alone and among 4."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(_pruned(rng, (200, 700)))
+    layer = tsfc.compress(w, mode=mode, density=0.25, dtype=vdt,
+                          kmeans_iters=3)
+    b = layer.blocked
+    x = torch.from_numpy(rng.normal(size=(700, 40)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=200).astype(np.float32))
+    for width in (32, 40):
+        wide = tsp.acsr_spmv(b, x[:, :width].contiguous(), bias=bias,
+                             activation="silu")
+        for j in range(width):
+            alone = tsp.acsr_spmv(b, x[:, j].contiguous(), bias=bias,
+                                  activation="silu")
+            assert torch.equal(wide[:, j], alone)
+            j4 = min(j, width - 4)
+            four = tsp.acsr_spmv(b, x[:, j4:j4 + 4].contiguous(), bias=bias,
+                                 activation="silu")
+            assert torch.equal(wide[:, j], four[:, j - j4])

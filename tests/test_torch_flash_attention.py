@@ -87,6 +87,23 @@ def test_plain_fwd_bwd_bf16_inputs(rng):
 
 
 @pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 72, 30.0), (False, None, None)])
+def test_plain_fwd_matches_pallas_at_the_training_head_dim(rng, causal,
+                                                           window, softcap):
+    """K7's shape on the training path: bf16 q / k / v, head dim 128, a
+    query group of 4, and the 64 x 64 tiles K7 walks (here two, so one is
+    cut by the causal diagonal and, windowed, one by the window's edge):
+    the plain version against the Pallas kernel at bq = bk = 64."""
+    q, k, v, _ = _inputs(rng, 1, 8, 2, 128, 128, dtype=jnp.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_fwd(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), bq=64, bk=64, **kw)
+    to, tlse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(o), **TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse), **TOL)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
     (True, None, None), (True, 5, 20.0), (False, 7, None)])
 def test_plain_ragged_t_matches_reference_oracle(rng, causal, window,
                                                   softcap):

@@ -187,6 +187,72 @@ def test_remat_full_equals_dots_and_bad_remat_raises(setup):
         _port_grads(cfg, tp, batch, remat="some")
 
 
+def _saved_bytes(cfg, tp, batch, remat):
+    """Bytes that the forward allocates and leaves alive for the backward
+    (the autograd graph's saved tensors, a checkpoint's inputs and the
+    selective policy's kept outputs), counted by storage: every op output
+    of the forward is tracked, and what is still alive after it counts.
+    (Hooks of ``saved_tensors_hooks`` do not see inside a checkpoint, whose
+    own hooks take their place there.)  Then the backward runs."""
+    import gc
+    import weakref
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    made = []
+
+    class Track(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.extend(weakref.ref(t.untyped_storage())
+                        for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+            return out
+
+    live = tree_map(lambda a: a.clone().requires_grad_(True), tp)
+    with Track():
+        lval, _ = TM.loss_fn(cfg, live, {"tokens": torch.from_numpy(
+            batch["tokens"])}, attn_impl="flash", remat=remat)
+    gc.collect()
+    alive = {st.data_ptr(): st.nbytes() for st in (r() for r in made)
+             if st is not None}
+    torch.autograd.grad(lval, leaves(live))
+    return sum(alive.values())
+
+
+def test_remat_dots_saves_only_the_products(setup, ref_grads, monkeypatch):
+    """The reference's "dots" policy: each layer keeps the outputs of its
+    products with no batch dims (``aten.mm``, one per projection) and
+    recomputes the rest.  Grads equal "none" and "full" bit for bit and
+    stay within the tolerance of the reference's; the bytes the forward
+    leaves for the backward order "full" < "dots" < "none"."""
+    _, cfg, _, tp, batch = setup[2]
+    saved = []
+    policy = TT._dots_policy
+
+    def spy(ctx, op, *a, **kw):
+        out = policy(ctx, op, *a, **kw)
+        if not ctx.is_recompute and out == \
+                torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            saved.append(op)
+        return out
+    monkeypatch.setattr(TT, "_dots_policy", spy)
+    grads = {r: _port_grads(cfg, tp, batch, attn_impl="flash", remat=r)
+             for r in TT.REMAT}
+    assert saved and set(saved) <= set(TT._DOTS)
+    assert len(saved) == 7 * cfg.n_layers      # q, k, v, o, gate, up, down
+    for r in ("none", "full"):
+        assert grads[r][0] == grads["dots"][0]
+        for x, y in zip(grads[r][1], grads["dots"][1]):
+            np.testing.assert_array_equal(x, y)
+    want_loss, want_grads = ref_grads[2, "flash"]
+    assert abs(grads["dots"][0] - want_loss) <= LOSS_TOL
+    _assert_grads_close(grads["dots"][1], want_grads)
+    monkeypatch.setattr(TT, "_dots_policy", policy)
+    held = {r: _saved_bytes(cfg, tp, batch, r) for r in TT.REMAT}
+    assert held["full"] < held["dots"] < held["none"], held
+
+
 # ----------------------------------------------------------------- AdamW
 def test_adamw_apply_matches_reference(setup):
     """Two AdamW steps (the second from non-zero moments) on the same
