@@ -17,10 +17,13 @@ Phases, each of which exits non-zero when it fails:
    bit-identical to the same column run alone and among 4;
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
-   window -1 / 64, softcap none / 30, with -1 holes and an empty row;
+   window -1 / 64, softcap none / 30, with -1 holes and an empty row, at
+   Dh 80 and 96 too, and with an f32 q; every row run alone must equal
+   the same row among 4 bit for bit;
 4. K3 (paged-attention chunk) likewise at C = 1 and 8, with padded
-   queries past the written context; at C = 1 it must equal K2 bit for
-   bit;
+   queries past the written context; every query of a chunk must equal K2
+   on that query alone bit for bit, and every row alone the same row
+   among 4;
 5. K4 (int8 FC) and K5 (codebook4 FC) against their plain versions at the
    seven projections, M = 4 and 32 rows, with bias and silu;
 6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
@@ -37,12 +40,13 @@ Phases, each of which exits non-zero when it fails:
    the reference's two tables, ragged B / N / K / nc and an integer table
    (exact), plus its entry point's launch count;
 8. kernel, plain-version and library times (CUDA events, median, L2
-   flushed) beside the least time the card needs for the same work;
+   flushed) beside the least time the card needs for the same work (K2
+   and K3 at contexts 37, 256, 2048 and 8192);
 9. the serving path: llama3-8b at full width, ``Engine.compress(aida
    0.25)`` then four requests served at chunk 1 and at chunk 8 (tokens
    equal up to near-tie flips; the logits' drift logged, and which ops
-   give a row other bits among 4 rows than among 32), with every launch
-   counted;
+   give a row other bits among 4 rows than among 32, K3 against K2
+   required to give none), with every launch counted;
 10. fresh int8 and codebook4 engines serve the same requests at chunk 8
     through K4 / K5;
 11. the training path: llama3-8b at full width, depth cut to 4 layers,
@@ -326,6 +330,13 @@ def k1_phase(dev, flush):
 
 
 # ------------------------------------------------------------------ K2
+# contexts K2 and K3 are timed at (37: the serve's, in a table of 256)
+PAGED_TIMED = ((37, 256), (256, 256), (2048, 2048), (8192, 8192))
+# head dims beside llama3-8b's 128, held against the plain version:
+# (Dh, H, Hkv) of h2o-danube-1.8b and phi-3-vision-4.2b
+PAGED_HEAD_DIMS = ((80, 32, 8), (96, 32, 32))
+
+
 def _k2_inputs(dev, gen, ctx, kv_dtype, batch=4, h=32, hkv=8, dh=128,
                ps=16, max_len=None):
     import torch
@@ -357,40 +368,88 @@ def _k2_inputs(dev, gen, ctx, kv_dtype, batch=4, h=32, hkv=8, dh=128,
     return q, pool, table.contiguous(), cur
 
 
+def _alone_equals_among(fn, q, table, pos, out, what):
+    """Every batch row run alone (B = 1) gives the bits it gets among the
+    batch's rows: the split plan and the arithmetic are the row's own."""
+    import torch
+    for i in range(q.shape[0]):
+        alone = fn(q[i:i + 1], table[i:i + 1].contiguous(),
+                   pos[i:i + 1].contiguous())
+        if not torch.equal(alone, out[i:i + 1]):
+            raise AssertionError(f"{what}: row {i} alone differs from the "
+                                 "same row among the batch")
+
+
+def _paged_bound(dev, table, pos, hkv, ps, dh, q, out_elems, mask_pairs):
+    """(bound ms, what bounds it): the live pages of each row read once
+    (up to the page of its furthest query), q, table and positions read,
+    the f32 output written; 4 flops per open (query, key) pair, head dim
+    and query head, at the bf16 tensor-core peak."""
+    import torch
+    npp = table.shape[1]
+    last = torch.clamp(pos.reshape(table.shape[0], -1).max(dim=1).values
+                       // ps, max=npp - 1)
+    live_pages = int(((table >= 0) & (
+        torch.arange(npp, device=dev)[None, :] <= last[:, None])).sum())
+    moved = 2 * live_pages * hkv * ps * dh * 2 + q.numel() * 2 + \
+        out_elems * 4 + table.numel() * 4 + pos.numel() * 4
+    return bound(moved, 4 * mask_pairs * dh, BF16_FLOPS), live_pages
+
+
 def k2_phase(dev, flush):
+    """K2 against its plain version at llama3-8b's geometry (contexts 37
+    and 2048, bf16 and int8 pages, window -1 / 64, cap none / 30, a row
+    with holes, an idle row), every row alone bit-identical to the same
+    row among 4; at Dh 80 and 96; with an f32 q; then timed at
+    PAGED_TIMED.  Returns (max abs err, {ctx: times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import paged_attention
     gen = torch.Generator(device=dev).manual_seed(1)
-    max_err, scale = 0.0, 128 ** -0.5
-    for ctx in (37, 2048):
-        for kv_dtype in ("bf16", "int8"):
-            q, pool, table, cur = _k2_inputs(dev, gen, ctx, kv_dtype)
-            for window in (-1, 64):
-                for cap in (None, 30.0):
-                    out = paged_attention(q, pool, table, cur, window,
-                                          scale=scale, cap=cap)
-                    plain = ref.paged_attention_ref(q, *pool, table, cur,
-                                                    window, scale, cap)
-                    torch.cuda.synchronize()
-                    err = check_close(
-                        f"paged_attention ctx={ctx} {kv_dtype} "
-                        f"window={window} cap={cap}", out, plain, 0, 1e-4)
-                    max_err = max(max_err, err)
-    log(f"K2 {2 * 2 * 2 * 2} cases agree, max abs err {max_err:.2e}")
-    rows = {}
-    for ctx, max_len in ((37, 256), (2048, 2048)):
+    max_err, n = 0.0, 0
+    cases = [(128, 32, 8, ctx, kv, window, cap)
+             for ctx in (37, 2048) for kv in ("bf16", "int8")
+             for window in (-1, 64) for cap in (None, 30.0)]
+    cases += [(dh, h, hkv, ctx, kv, window, cap)
+              for dh, h, hkv in PAGED_HEAD_DIMS for ctx in (37, 2048)
+              for kv in ("bf16", "int8")
+              for window, cap in ((-1, None), (64, 30.0))]
+    for dh, h, hkv, ctx, kv_dtype, window, cap in cases:
+        q, pool, table, cur = _k2_inputs(dev, gen, ctx, kv_dtype, h=h,
+                                         hkv=hkv, dh=dh)
+        scale = dh ** -0.5
+        what = (f"paged_attention Dh={dh} H={h}/{hkv} ctx={ctx} {kv_dtype} "
+                f"window={window} cap={cap}")
+        out = paged_attention(q, pool, table, cur, window, scale=scale,
+                              cap=cap)
+        plain = ref.paged_attention_ref(q, *pool, table, cur, window, scale,
+                                        cap)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_close(what, out, plain, 0, 1e-4))
+        _alone_equals_among(lambda qq, tt, cc: paged_attention(
+            qq, pool, tt, cc, window, scale=scale, cap=cap),
+            q, table, cur, out, what)
+        n += 1
+        if dh == 128 and ctx == 2048 and window < 0 and cap is None:
+            out = paged_attention(q.float(), pool, table, cur, -1,
+                                  scale=scale)
+            plain = ref.paged_attention_ref(q.float(), *pool, table, cur,
+                                            -1, scale, None)
+            max_err = max(max_err, check_close(what + " f32 q", out, plain,
+                                               0, 1e-4))
+            n += 1
+    log(f"K2 {n} cases agree (Dh 128, 80, 96; f32 q), max abs err "
+        f"{max_err:.2e}; every row alone bit-identical to it among 4")
+    rows, scale = {}, 128 ** -0.5
+    for ctx, max_len in PAGED_TIMED:
         q, pool, table, cur = _k2_inputs(dev, gen, ctx, "bf16",
                                          max_len=max_len)
         _, hkv, ps, dh = pool.k_pages.shape
         b, h = q.shape[:2]
-        live_pages = int(((table >= 0) & (
-            torch.arange(table.shape[1], device=dev)[None, :]
-            <= (cur[:, None] // ps))).sum())
-        moved = 2 * live_pages * hkv * ps * dh * 2 + q.numel() * 2 + \
-            b * h * dh * 4 + table.numel() * 4 + b * 4
-        flops = 4 * (live_pages * ps) * (h // hkv) * hkv * dh
-        bms, by = bound(moved, flops, BF16_FLOPS)
+        pairs = int(((table >= 0).repeat_interleave(ps, dim=1)
+                     [:, :ctx]).sum()) * h
+        (bms, by), live_pages = _paged_bound(dev, table, cur, hkv, ps, dh,
+                                             q, b * h * dh, pairs)
         t_k, host = median_ms(lambda: paged_attention(
             q, pool, table, cur, -1, scale=scale), flush=flush)
         t_p, _ = median_ms(lambda: ref.paged_attention_ref(
@@ -409,18 +468,18 @@ def k2_phase(dev, flush):
             f"bound_ms={bms:.5f} ({by}) host_enqueue_ms={host:.4f}")
         rows[ctx] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
                      "bound_by": by, "library_ms": t_l}
-    return max_err, rows[37]
+    return max_err, rows
 
 
 # ------------------------------------------------------------------ K3
-def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None):
+def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None, **geo):
     """K2's pool and table (holes in row 1, row 3 idle) with a chunk of
     queries per row: rows 0 and 1 end their chunk at ``ctx - 1``; row 2
     feeds 3 tokens, so its padded queries run past the written context,
     into -1 table entries (and past the table at the widest context)."""
     import torch
     q1, pool, table, _ = _k2_inputs(dev, gen, ctx, kv_dtype,
-                                    max_len=max_len)
+                                    max_len=max_len, **geo)
     b, h, dh = q1.shape
     q = torch.randn((b, h, chunk, dh), generator=gen,
                     device=dev).to(torch.bfloat16)
@@ -432,59 +491,64 @@ def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None):
 
 
 def k3_phase(dev, flush):
+    """K3 against its plain version at C = 1 and 8 over K2's cases (and
+    Dh 80 / 96 at C = 8): at C = 1 bit-identical to K2; at C = 8 every row
+    bit-identical to K2 on that query alone at its position, and every
+    batch row alone to it among 4; then timed at C = 8 at PAGED_TIMED.
+    Returns (max abs err, {ctx: times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import (paged_attention,
                                                      paged_attention_chunk)
     from repro_torch.kvstore.pool import chunk_attention_mask
     gen = torch.Generator(device=dev).manual_seed(2)
-    max_err, scale, n = 0.0, 128 ** -0.5, 0
-    for chunk in (1, 8):
-        for ctx in (37, 2048):
-            for kv_dtype in ("bf16", "int8"):
-                q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv_dtype,
-                                                   chunk)
-                for window in (-1, 64):
-                    for cap in (None, 30.0):
-                        out = paged_attention_chunk(q, pool, table, q_pos,
-                                                    window, scale=scale,
-                                                    cap=cap)
-                        plain = ref.paged_attention_chunk_ref(
-                            q, *pool, table, q_pos, window, scale, cap)
-                        torch.cuda.synchronize()
-                        err = check_close(
-                            f"paged_attention_chunk C={chunk} ctx={ctx} "
-                            f"{kv_dtype} window={window} cap={cap}", out,
-                            plain, 0, 1e-4)
-                        max_err = max(max_err, err)
-                        n += 1
-                        if chunk == 1:    # the reference's own contract
-                            dec = paged_attention(q[:, :, 0], pool, table,
-                                                  q_pos[:, 0], window,
-                                                  scale=scale, cap=cap)
-                            if not torch.equal(dec, out[:, :, 0]):
-                                raise AssertionError(
-                                    "a C=1 chunk differs from the decode "
-                                    f"kernel (ctx={ctx} {kv_dtype} "
-                                    f"window={window} cap={cap})")
-    log(f"K3 {n} cases agree, max abs err {max_err:.2e}; C=1 is "
-        "bit-identical to K2 in all 16")
-    rows = {}
-    for ctx, max_len in ((37, 256), (2048, 2048)):
+    max_err, n = 0.0, 0
+    cases = [(128, 32, 8, chunk, ctx, kv, window, cap)
+             for chunk in (1, 8) for ctx in (37, 2048)
+             for kv in ("bf16", "int8") for window in (-1, 64)
+             for cap in (None, 30.0)]
+    cases += [(dh, h, hkv, 8, ctx, kv, window, cap)
+              for dh, h, hkv in PAGED_HEAD_DIMS for ctx in (37, 2048)
+              for kv in ("bf16", "int8")
+              for window, cap in ((-1, None), (64, 30.0))]
+    for dh, h, hkv, chunk, ctx, kv_dtype, window, cap in cases:
+        q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv_dtype, chunk,
+                                           h=h, hkv=hkv, dh=dh)
+        scale = dh ** -0.5
+        what = (f"paged_attention_chunk C={chunk} Dh={dh} H={h}/{hkv} "
+                f"ctx={ctx} {kv_dtype} window={window} cap={cap}")
+        out = paged_attention_chunk(q, pool, table, q_pos, window,
+                                    scale=scale, cap=cap)
+        plain = ref.paged_attention_chunk_ref(q, *pool, table, q_pos,
+                                              window, scale, cap)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_close(what, out, plain, 0, 1e-4))
+        n += 1
+        # each query of the chunk, decoded alone at its position (C = 1:
+        # the reference's own contract)
+        for ci in range(chunk):
+            dec = paged_attention(q[:, :, ci].contiguous(), pool, table,
+                                  q_pos[:, ci].contiguous(), window,
+                                  scale=scale, cap=cap)
+            if not torch.equal(dec, out[:, :, ci]):
+                raise AssertionError(f"{what}: query {ci} differs from the "
+                                     "decode kernel on it alone")
+        _alone_equals_among(lambda qq, tt, pp: paged_attention_chunk(
+            qq, pool, tt, pp, window, scale=scale, cap=cap),
+            q, table, q_pos, out, what)
+    log(f"K3 {n} cases agree (Dh 128, 80, 96), max abs err {max_err:.2e}; "
+        "every query bit-identical to K2 on it alone (C = 1 and 8), every "
+        "row alone to it among 4")
+    rows, scale = {}, 128 ** -0.5
+    for ctx, max_len in PAGED_TIMED:
         q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, "bf16", 8,
                                            max_len=max_len)
         _, hkv, ps, dh = pool.k_pages.shape
         b, h, c = q.shape[:3]
-        npp = table.shape[1]
         mask = chunk_attention_mask(table, q_pos, -1, ps)     # [B, C, S]
-        # bytes: the pages up to each row's last query, read once
-        last = torch.clamp(q_pos.max(dim=1).values // ps, max=npp - 1)
-        live_pages = int(((table >= 0) & (
-            torch.arange(npp, device=dev)[None, :] <= last[:, None])).sum())
-        moved = 2 * live_pages * hkv * ps * dh * 2 + q.numel() * 2 + \
-            q.numel() * 4 + table.numel() * 4 + q_pos.numel() * 4
-        flops = 4 * int(mask.sum()) * h * dh
-        bms, by = bound(moved, flops, BF16_FLOPS)
+        (bms, by), live_pages = _paged_bound(
+            dev, table, q_pos, hkv, ps, dh, q, q.numel(),
+            int(mask.sum()) * h)
         t_k, host = median_ms(lambda: paged_attention_chunk(
             q, pool, table, q_pos, -1, scale=scale), flush=flush)
         t_p, _ = median_ms(lambda: ref.paged_attention_chunk_ref(
@@ -499,12 +563,13 @@ def k3_phase(dev, flush):
         t_l, _ = median_ms(lambda: sdpa(q, kk, vv, attn_mask=amask,
                                         scale=scale, enable_gqa=True),
                            flush=flush)
-        log(f"K3 C={c} ctx={ctx} npp={npp} live_pages={live_pages} "
-            f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-            f"bound_ms={bms:.5f} ({by}) host_enqueue_ms={host:.4f}")
+        log(f"K3 C={c} ctx={ctx} npp={table.shape[1]} "
+            f"live_pages={live_pages} kernel_ms={t_k:.4f} "
+            f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.5f} "
+            f"({by}) host_enqueue_ms={host:.4f}")
         rows[ctx] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
                      "bound_by": by, "library_ms": t_l}
-    return max_err, rows[37]
+    return max_err, rows
 
 
 # -------------------------------------------------------------- K4, K5
@@ -1190,8 +1255,12 @@ def serve_phase(dev, layers):
     log(f"serve: chunk-8 vs chunk-1 greedy tokens: "
         f"{'identical' if not flips else f'{flips} near-tie flips'}; "
         f"logits max abs drift {drift:.6g} over the shared prefixes")
+    gaps = _row_count_probe(dev, eng)
     log("serve: ops' max abs gap, a row among 32 rows vs among 4: "
-        + json.dumps(_row_count_probe(dev, eng)))
+        + json.dumps(gaps))
+    if gaps["K3 chunk of 8 vs K2 a query"] != 0.0:
+        raise AssertionError("serve: a query of a K3 chunk differs from K2 "
+                             "on it alone")
     del sess1, sess8
     trace_serve(eng, 1)
     trace_serve(eng, 8)
@@ -1826,6 +1895,15 @@ def _by_shape(times, launches):
     return {**top, "shapes": shapes}
 
 
+def _by_context(times, launches):
+    """K2's or K3's numbers for the kernels line: at each timed context
+    (``shapes``), and at the top level the serve's context (37), where the
+    main path's launches all fall."""
+    shapes = [{"ctx": ctx, "launches": launches if ctx == 37 else 0,
+               **times[ctx]} for ctx in sorted(times)]
+    return {**times[37], "shapes": shapes}
+
+
 def _timed(name, fn, *args):
     """fn(*args), logging its wall time."""
     t0 = time.perf_counter()
@@ -1906,6 +1984,8 @@ def main(argv=None) -> int:
                "max_abs_err": errs[name]}
         if name in by_rows:   # FC kernels: per layer, at the main path's rows
             row.update(_by_shape(times[name], by_rows[name]))
+        elif name.startswith("paged_"):   # K2, K3: by context
+            row.update(_by_context(times[name], launches[name]))
         else:
             row.update(times[name])
         if name == "acsr_spmv_gather":   # and per rwkv6-7b layer, 4 columns

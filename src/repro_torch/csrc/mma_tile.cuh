@@ -1,8 +1,8 @@
 // Tensor-core building blocks shared by the flash-attention forward (K7)
-// and backward (K8): bf16 `mma.sync` m16n8k16 with f32 accumulators,
-// `ldmatrix` fragment loads from shared memory, `cp.async` (also used by
-// the blocked-ACSR SpMV, K1), and the split of an f32 value into two bf16
-// halves.
+// and backward (K8) and the paged attention (K2 / K3): bf16 `mma.sync`
+// m16n8k16 with f32 accumulators, `ldmatrix` fragment loads from shared
+// memory, `cp.async` (also used by the blocked-ACSR SpMV, K1), the split of
+// an f32 value into two bf16 halves, and int8 to bf16 (exact).
 //
 // Split-bf16 precision.  An f32 value x is stored as hi = bf16(x) and
 // lo = bf16(x - hi): hi keeps the top 8 significant bits, lo the next 8,
@@ -121,6 +121,34 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   const Split a = split(x), b = split(y);
   hi = pack(a.hi, b.hi);
   lo = pack(a.lo, b.lo);
+}
+
+// The A fragment of one k16 step from the accumulators of two neighbouring
+// n8 tiles of a 16-row product (c0: columns 0-7, c1: 8-15), each f32 value
+// split into bf16 hi + lo: the p of an online softmax enters p . v this way
+// without leaving registers or being rounded.
+__device__ __forceinline__ void acc_to_a(const float* c0, const float* c1,
+                                         uint32_t* hi, uint32_t* lo) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Two int8 values (bytes k and k + 1 of w, k even) as a bf16 pair: exact.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w, int k) {
+  const float a = (float)(int8_t)((w >> (8 * k)) & 0xffu);
+  const float b = (float)(int8_t)((w >> (8 * k + 8)) & 0xffu);
+  return pack(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+}
+
+// A 16-byte piece of 16 int8 values as 16 bf16 values (two pieces).
+__device__ __forceinline__ void i8x16_bf16(uint4 raw, uint4& first,
+                                           uint4& second) {
+  first = make_uint4(i8x2_bf16(raw.x, 0), i8x2_bf16(raw.x, 2),
+                     i8x2_bf16(raw.y, 0), i8x2_bf16(raw.y, 2));
+  second = make_uint4(i8x2_bf16(raw.z, 0), i8x2_bf16(raw.z, 2),
+                      i8x2_bf16(raw.w, 0), i8x2_bf16(raw.w, 2));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

@@ -5,12 +5,15 @@ sequence (K2) or a chunk of C queries at their own positions (K3).
 :func:`paged_attention` and :func:`paged_attention_chunk` launch their
 kernel for tensors on the card and take the plain version
 (``kernels.ref.paged_attention_ref`` / ``paged_attention_chunk_ref``,
-the same arithmetic with whole-tensor ops) for tensors on the CPU.
+the same arithmetic with whole-tensor ops) for tensors on the CPU.  One
+kernel serves both (decode is its C = 1 case), and every query follows
+its own :func:`split_plan`, so a query's bits never depend on the batch
+or the chunk it is in.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,72 +24,127 @@ from repro_torch.kvstore.pool import PagedKV
 NEG_INF = ref.NEG_INF
 _Q_KINDS = {torch.bfloat16: 0, torch.float32: 1}
 _PAGE_KINDS = {torch.bfloat16: 0, torch.int8: 1}
-MAX_ROWS = 32                  # query rows (warps) of one block: G * qt
+MAX_ROWS = 32                  # query rows of one block: G * qt
+#: head dims the kernel takes: whole m16n8k16 depth steps, up to 256
+HEAD_DIMS = tuple(range(16, 257, 16))
+#: keys of one range of the split plan (``RANGE`` in the CUDA source)
+RANGE_KEYS = 256
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def query_tile(chunk: int, group: int) -> int:
     """Queries per block: the largest divisor of ``chunk`` whose
-    ``group * qt`` query rows fit one block's warps."""
+    ``group * qt`` query rows fit one block."""
     return max(d for d in range(1, chunk + 1)
                if chunk % d == 0 and d * group <= MAX_ROWS)
+
+
+def split_plan(n_pages: int, page_size: int) -> Tuple[Tuple[int, int], ...]:
+    """The key ranges ``[k0, k1)`` the kernel cuts a row into, a row being
+    one query that visits pages 0 .. ``n_pages`` - 1 (its live pages: up
+    to the page holding its position, clamped to the table, at least page
+    0): RANGE_KEYS keys each from key 0, the last one ending with the row.
+    A block takes one range of a query tile (a row of one range is written
+    at once; a longer row's ranges are merged in this order).  The plan is
+    the row's alone: no batch, chunk, table width or SM count enters it,
+    so a query gets the same bits decoded alone, among other rows or in a
+    chunk."""
+    n_keys = n_pages * page_size
+    return tuple((k0, min(k0 + RANGE_KEYS, n_keys))
+                 for k0 in range(0, n_keys, RANGE_KEYS))
+
+
+def _check(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
+           q_pos: torch.Tensor) -> None:
+    """What the CUDA kernel takes; raises on anything else.  q [B, H, C,
+    Dh], q_pos [B, C]."""
+    if q.dim() != 4 or pool.k_pages.dim() != 4:
+        raise ValueError(f"paged attention takes q [B, H, C, Dh] and pages "
+                         f"[n_pages, Hkv, ps, Dh], got {tuple(q.shape)}, "
+                         f"{tuple(pool.k_pages.shape)}")
+    b, h, c, dh = q.shape
+    n_pages, hkv, ps, pdh = pool.k_pages.shape
+    if q.dtype not in _Q_KINDS or pool.k_pages.dtype not in _PAGE_KINDS \
+            or pool.v_pages.dtype != pool.k_pages.dtype:
+        raise TypeError(f"paged attention takes bf16/f32 q and bf16/int8 "
+                        f"pages, got {q.dtype}, {pool.k_pages.dtype}, "
+                        f"{pool.v_pages.dtype}")
+    if pool.v_pages.shape != pool.k_pages.shape:
+        raise ValueError("k_pages and v_pages differ in shape")
+    if pdh != dh or dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} (pages {pdh}): the kernel takes a "
+                         "multiple of 16 up to 256")
+    if h % hkv or h // hkv > MAX_ROWS:
+        raise ValueError(f"{h} query heads over {hkv} kv heads: the group "
+                         f"must divide and be at most {MAX_ROWS}")
+    if table.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise TypeError("table and positions must be int32")
+    if table.dim() != 2 or table.shape[0] != b or table.shape[1] < 1 or \
+            tuple(q_pos.shape) != (b, c):
+        raise ValueError("table / positions do not match q")
+    if pool.quantized and any(
+            s is None or s.dtype != torch.float32 or
+            tuple(s.shape) != (n_pages, hkv)
+            for s in (pool.k_scale, pool.v_scale)):
+        raise TypeError("int8 pages need f32 scales [n_pages, Hkv]")
+    tensors = [q, table, q_pos, *(t for t in pool if t is not None)]
+    for t in tensors:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("paged attention operands must be contiguous "
+                             "and on one device")
+    if any(t.data_ptr() % 16 for t in (q, pool.k_pages, pool.v_pages)):
+        raise ValueError("paged attention copies q and pages in 16-byte "
+                         "pieces: they must be 16-byte aligned")
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The tiles' merge counters for launches on ``stream``: zero between
+    launches (the block that merges a tile resets its counter), made once
+    per stream, so launches on two streams never share one."""
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
+        _COUNTERS[(dev, stream)] = buf
+    return buf
 
 
 def _launch(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
             q_pos: torch.Tensor, window: int, scale: float,
             cap: Optional[float]) -> torch.Tensor:
     """q [B, H, C, Dh], q_pos [B, C] -> [B, H, C, Dh] f32 through the
-    chunk kernel's C launcher (decode is its C = 1 case)."""
-    b, h, c, dh = q.shape
-    _, hkv, ps, pdh = pool.k_pages.shape
-    npp = table.shape[1]
-    dev = q.device
-    if q.dtype not in _Q_KINDS or pool.k_pages.dtype not in _PAGE_KINDS:
-        raise TypeError(f"paged attention takes bf16/f32 q and bf16/int8 "
-                        f"pages, got {q.dtype}, {pool.k_pages.dtype}")
-    if pdh != dh or h % hkv or h // hkv > MAX_ROWS or \
-            dh not in (32, 64, 128, 256):
-        raise ValueError(f"unsupported geometry q {tuple(q.shape)} pages "
-                         f"{tuple(pool.k_pages.shape)}")
-    qt = query_tile(c, h // hkv)
-    if (2 * ps * dh + (h // hkv) * qt * ps) * 4 > 48 * 1024:
-        raise ValueError(f"page of {ps} x {dh} exceeds the kernel's shared "
-                         "memory")
-    if table.dtype != torch.int32 or q_pos.dtype != torch.int32:
-        raise TypeError("table and positions must be int32")
-    if table.shape[0] != b or q_pos.shape != (b, c):
-        raise ValueError("table / positions do not match q")
-    tensors = [q, table, q_pos, *(t for t in pool if t is not None)]
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("paged attention operands must be contiguous "
-                             "and on one device")
-    # split the page range until the card has ~2 blocks per SM (for C = 1
-    # the same split as the decode kernel's, so the two agree bit for bit)
-    blocks = b * hkv * (c // qt)
-    nsplit = max(1, min(-(-2 * build.sm_count(dev) // blocks), npp))
-    per_split = -(-npp // nsplit)
-    nsplit = -(-npp // per_split)
-    out = torch.empty((b, h, c, dh), dtype=torch.float32, device=dev)
-    part = torch.empty((b * h * c * nsplit * (dh + 2) if nsplit > 1 else 1,),
-                       dtype=torch.float32, device=dev)
+    kernel's C launcher (decode is its C = 1 case)."""
+    _check(q, pool, table, q_pos)
     fn = build.library("paged_attention").paged_attention_chunk_launch
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 11 + \
-            [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ptr]
+        fn.argtypes = [ptr] * 10 + [ctypes.c_int] * 12 + \
+            [ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
+    b, h, c, dh = q.shape
+    _, hkv, ps, _ = pool.k_pages.shape
+    npp = table.shape[1]
+    dev = q.device
+    qt = query_tile(c, h // hkv)
+    # the grid covers the most ranges a row of this table can have; blocks
+    # past a tile's own last range exit at once
+    nrange = len(split_plan(npp, ps))
+    tiles = b * hkv * (c // qt)
+    out = torch.empty((b, h, c, dh), dtype=torch.float32, device=dev)
+    part = torch.empty((b * h * c * nrange * (dh + 2) if nrange > 1 else 1,),
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cnt = _counters(dev, stream, tiles)
     quant = pool.quantized
     status = fn(q.data_ptr(), pool.k_pages.data_ptr(),
                 pool.v_pages.data_ptr(),
                 pool.k_scale.data_ptr() if quant else None,
                 pool.v_scale.data_ptr() if quant else None,
                 table.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
-                out.data_ptr(), _Q_KINDS[q.dtype],
+                cnt.data_ptr(), out.data_ptr(), _Q_KINDS[q.dtype],
                 _PAGE_KINDS[pool.k_pages.dtype], b, h, hkv, dh, c, qt, ps,
-                npp, int(window), float(scale),
+                npp, nrange, int(window), float(scale),
                 float(cap) if cap is not None else 0.0,
-                int(cap is not None), nsplit, per_split,
-                torch.cuda.current_stream(dev).cuda_stream)
+                int(cap is not None), stream)
     build.check(status, "paged_attention_chunk_launch")
     return out
 
