@@ -25,7 +25,9 @@ Phases, each of which exits non-zero when it fails:
    on that query alone bit for bit, and every row alone the same row
    among 4;
 5. K4 (int8 FC) and K5 (codebook4 FC) against their plain versions at the
-   seven projections, M = 4 and 32 rows, with bias and silu;
+   seven projections, M = 4 and 32 rows, with bias and silu; every call
+   twice, bit-identical, and every row alone bit-identical to the same
+   row among 4 and among 32;
 6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
    at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
    (windows, softcaps, non-causal, Hkv 1-8, D 64 / 128, ragged T, f32);
@@ -48,7 +50,8 @@ Phases, each of which exits non-zero when it fails:
    give a row other bits among 4 rows than among 32, K3 against K2
    required to give none), with every launch counted;
 10. fresh int8 and codebook4 engines serve the same requests at chunk 8
-    through K4 / K5;
+    through K4 / K5 (one launch a call), then a short profiled serve each
+    (device busy, kernels a step, K4 / K5 as the "fc" family);
 11. the training path: llama3-8b at full width, depth cut to 4 layers,
     ``trainer.run(attn_impl="flash", remat="dots")`` for 4 steps on 2 x
     2048 tokens through K7 / K8 (exact launch counts: K7 twice a layer and
@@ -576,8 +579,10 @@ def k3_phase(dev, flush):
 def fc_phase(dev, flush):
     """K4 (int8) and K5 (codebook4) against their plain versions at
     llama3-8b's seven projections, at the decode rows (M = 4) and a
-    chunk-8 step's rows (M = 32), with bias on wq and silu on gate.
-    Times are summed over one layer's seven projections per M."""
+    chunk-8 step's rows (M = 32), with bias on wq and silu on gate; every
+    call repeated bit for bit, and every row alone bit-identical to the
+    same row among the others.  Times are summed over one layer's seven
+    projections per M; the bound counts the bf16 tensor-core rate."""
     import torch
     from repro_torch.core import sparse_fc as sfc
     from repro_torch.kernels import int8_matmul as i8
@@ -587,6 +592,7 @@ def fc_phase(dev, flush):
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     tot = {(mode, m): dict.fromkeys(keys, 0.0)
            for mode in errs for m in (4, 32)}
+    unequal = []
     for name, n_out, n_in in PROJECTIONS:
         w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
             n_in ** -0.5
@@ -608,14 +614,22 @@ def fc_phase(dev, flush):
             for m in (4, 32):
                 x = torch.randn((m, n_in), generator=gen, device=dev)
                 out = kern(x, *wts, bias=bias, activation=act)
+                again = kern(x, *wts, bias=bias, activation=act)
+                alone = torch.cat([kern(x[i:i + 1], *wts, bias=bias,
+                                        activation=act) for i in range(m)])
                 plain = plain_fn(x, *wts, bias, act)
                 torch.cuda.synchronize()
-                err = check_close(f"{mode} {name} M={m}", out, plain, 1e-4,
-                                  1e-4)
+                what = f"{mode} {name} M={m}"
+                err = check_close(what, out, plain, 1e-4, 1e-4)
                 errs[mode] = max(errs[mode], err)
+                if not torch.equal(again, out):
+                    unequal.append(f"{what}: a rerun")
+                rows = (alone != out).any(dim=1).nonzero().flatten()
+                if len(rows):
+                    unequal.append(f"{what}: {len(rows)} of {m} rows alone")
                 moved = wbytes + m * n_in * 4 + m * n_out * 4 + \
                     (n_out * 4 if bias is not None else 0)
-                bms, by = bound(moved, 2 * m * n_out * n_in)
+                bms, by = bound(moved, 2 * m * n_out * n_in, BF16_FLOPS)
                 t_k, host = median_ms(lambda: kern(x, *wts, bias=bias,
                                                    activation=act),
                                       flush=flush)
@@ -642,6 +656,11 @@ def fc_phase(dev, flush):
         log(f"{mode} one layer (7 projections, M={m}): "
             + " ".join(f"{k}={row[k]:.4f}" for k in keys)
             + f" bound_by={row['bound_by']}")
+    log("K4/K5 bit for bit (reruns; every row alone vs among 4 and 32): "
+        + ("all equal" if not unequal else "; ".join(unequal)))
+    if unequal:
+        raise AssertionError("K4/K5: results that should repeat bit for "
+                             "bit differ: " + "; ".join(unequal))
     return errs, tot
 
 
@@ -1269,8 +1288,8 @@ def serve_phase(dev, layers):
 
 def fc_mode_serves(dev, layers):
     """Fresh int8 and codebook4 engines at full width serve the four
-    requests at chunk 8 through K4 / K5.  Returns each one's FC kernel
-    launches by kernel and rows."""
+    requests at chunk 8 through K4 / K5, then a short traced serve each.
+    Returns each one's FC kernel launches by kernel and rows."""
     import gc
 
     import torch
@@ -1283,11 +1302,12 @@ def fc_mode_serves(dev, layers):
         eng = _compressed_engine(dev, cfg, CompressionSpec(mode=mode),
                                  f"serve {mode}")
         counts.update(_serve(dev, eng, f"serve {mode} chunk 8", kern, 8)[3])
+        trace_serve(eng, 8, label=mode)
         del eng
     return counts
 
 
-def trace_serve(eng, chunk, n_req=4):
+def trace_serve(eng, chunk, n_req=4, label=""):
     """Device busy share and kernel time by family over a short serve of
     the first ``n_req`` of the same requests (4 new tokens each), from
     torch.profiler."""
@@ -1309,15 +1329,17 @@ def trace_serve(eng, chunk, n_req=4):
     if not kernels:
         log("trace: the profiler saw no device events (not measured)")
         return
-    fam = {"acsr_spmv": 0.0, "paged_attention": 0.0, "other": 0.0}
-    for e in kernels:
+    fam = {"acsr_spmv": 0.0, "paged_attention": 0.0, "fc": 0.0,
+           "other": 0.0}
+    for e in kernels:     # K4 / K5 live in namespace fc (csrc/fc_tile.cuh)
         key = "acsr_spmv" if "spmv" in e.name else \
-            "paged_attention" if "paged_" in e.name else "other"
+            "paged_attention" if "paged_" in e.name else \
+            "fc" if "fc::" in e.name else "other"
         fam[key] += e.time_range.elapsed_us() / 1e3
     busy = sum(fam.values())
     steps = sess.stats["steps"]
-    log(f"trace chunk {chunk}: {steps} steps, wall "
-        f"{wall * 1e3 / steps:.2f} ms/step, "
+    log(f"trace {label + ' ' if label else ''}chunk {chunk}: {steps} "
+        f"steps, wall {wall * 1e3 / steps:.2f} ms/step, "
         f"device busy {busy / steps:.3f} ms/step "
         f"({100 * busy / (wall * 1e3):.1f}% of wall), kernels "
         f"{len(kernels) / steps:.0f}/step; ms/step by family: " +

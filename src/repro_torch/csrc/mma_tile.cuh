@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the flash-attention forward (K7)
-// and backward (K8) and the paged attention (K2 / K3): bf16 `mma.sync`
+// and backward (K8), the paged attention (K2 / K3) and the int8 and
+// codebook4 FC products (K4 / K5, fc_tile.cuh): bf16 `mma.sync`
 // m16n8k16 with f32 accumulators, `ldmatrix` fragment loads from shared
 // memory, `cp.async` (also used by the blocked-ACSR SpMV, K1), the split of
 // an f32 value into two bf16 halves, and int8 to bf16 (exact).
@@ -115,12 +116,15 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat16 a, __nv_bfloat16 b) {
          ((uint32_t)__bfloat16_as_ushort(b) << 16);
 }
 
-// Accumulator pair (x, y) of neighbouring columns -> hi and lo words.
+// Accumulator pair (x, y) of neighbouring columns -> hi and lo words:
+// split() of each, two values a conversion.
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
                                        uint32_t& lo) {
-  const Split a = split(x), b = split(y);
-  hi = pack(a.hi, b.hi);
-  lo = pack(a.lo, b.lo);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      x - __uint_as_float(hi << 16), y - __uint_as_float(hi & 0xffff0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // The A fragment of one k16 step from the accumulators of two neighbouring

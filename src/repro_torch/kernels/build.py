@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNTERS: Dict[Tuple[object, int], object] = {}
 
 
 def _nvcc() -> str:
@@ -99,3 +100,17 @@ def check(status: int, what: str) -> None:
 def sm_count(device) -> int:
     import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def counters(device, stream: int, n: int):
+    """At least ``n`` int32 merge counters for launches on ``stream``: a
+    kernel whose last block of a tile merges the tile's partials finds
+    out it is last from its counter and resets it, so they are zero
+    between launches.  Made once per stream, so launches on two streams
+    never share one."""
+    import torch
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf

@@ -13,7 +13,7 @@ or the chunk it is in.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,7 +29,6 @@ MAX_ROWS = 32                  # query rows of one block: G * qt
 HEAD_DIMS = tuple(range(16, 257, 16))
 #: keys of one range of the split plan (``RANGE`` in the CUDA source)
 RANGE_KEYS = 256
-_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def query_tile(chunk: int, group: int) -> int:
@@ -97,17 +96,6 @@ def _check(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
                          "pieces: they must be 16-byte aligned")
 
 
-def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The tiles' merge counters for launches on ``stream``: zero between
-    launches (the block that merges a tile resets its counter), made once
-    per stream, so launches on two streams never share one."""
-    buf = _COUNTERS.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
-        _COUNTERS[(dev, stream)] = buf
-    return buf
-
-
 def _launch(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
             q_pos: torch.Tensor, window: int, scale: float,
             cap: Optional[float]) -> torch.Tensor:
@@ -133,7 +121,7 @@ def _launch(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
     part = torch.empty((b * h * c * nrange * (dh + 2) if nrange > 1 else 1,),
                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cnt = _counters(dev, stream, tiles)
+    cnt = build.counters(dev, stream, tiles)
     quant = pool.quantized
     status = fn(q.data_ptr(), pool.k_pages.data_ptr(),
                 pool.v_pages.data_ptr(),
