@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py --time-gather    # K1 gather's times only
 
 Phases, each of which exits non-zero when it fails:
 
@@ -10,11 +11,12 @@ Phases, each of which exits non-zero when it fails:
    card (nvidia-smi name, power limit);
 2. K1 (blocked-ACSR SpMV: a gather kernel up to 8 columns, a wide
    kernel beyond, both summing a column in one order) against its plain
-   version at the seven llama3-8b projection geometries at 1, 4, 8, 12,
-   32 and 40 columns, rwkv6-7b's eight at 4, acsr with f32 and bf16
+   version at the seven llama3-8b projection geometries at 1, 3, 4, 8,
+   12, 32 and 40 columns, rwkv6-7b's eight at 4, acsr with f32 and bf16
    values, 40000 columns (int32 ids) and rows of row_nnz = 0, density
    0.25; every call twice, bit-identical, and every column of every width
-   bit-identical to the same column run alone and among 4;
+   bit-identical to the same column run alone and among 4; the kernels a
+   call, from the profiler (the gather variant: one launch);
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row, at
@@ -39,8 +41,11 @@ Phases, each of which exits non-zero when it fails:
    through strided head views), the reference's test shapes, its
    tiny-decay case, a ragged T and Dk 128 / Dv 256; K6 (the fully-coded
    LUT product) at the seven llama3-8b projections, B = 4 and 32, with
-   the reference's two tables, ragged B / N / K / nc and an integer table
-   (exact), plus its entry point's launch count;
+   the reference's two tables, ragged B / N / K / nc and an integer table,
+   all bit-identical to the plain version (exact int64 sums), every x row
+   alone bit-identical to it among 4 and among 32 (and, profiled right
+   after the K1 phase, one kernel a call), plus its entry point's launch
+   count;
 8. kernel, plain-version and library times (CUDA events, median, L2
    flushed) beside the least time the card needs for the same work (K2
    and K3 at contexts 37, 256, 2048 and 8192);
@@ -93,9 +98,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
-# shared-memory loads of 4 bytes: 132 SMs x 32 banks a clock x 1.98 GHz
-# (H100 SXM boost clock); bounds K6's table look-ups
-SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
+# f32 additions: 132 SMs x 128 lanes x 1.98 GHz (an FMA's two flops are
+# counted in F32_FLOPS); bounds K6's one addition a weight byte and x row
+F32_ADDS = F32_FLOPS / 2
 KERNELS = [                        # (name, csrc file, TPU kernel replaced)
     ("acsr_spmv_wide", "acsr_spmv.cu",
      "src/repro/kernels/acsr_spmv.py:160"),
@@ -166,6 +171,42 @@ def bound(bytes_, flops, rate=F32_FLOPS):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def kernels_of(fn, key):
+    """The device kernels one call of ``fn`` launches whose names hold
+    ``key``, from torch.profiler, or None when the profiler saw no device
+    kernel at all (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [n for n in names if key in n] if names else None
+
+
+def one_kernel(fn, key, what, tries=3):
+    """Raise unless one call of ``fn`` launches exactly one kernel named
+    ``key``, the profiler seeing it; returns 1.  The profiler now and then
+    records no device kernel at all in a profile, so a call it saw nothing
+    of is profiled again, ``tries`` times at most."""
+    for attempt in range(tries):
+        per_call = kernels_of(fn, key)
+        if per_call is not None:
+            break
+        log(f"{what}: the profiler saw no device kernel (try {attempt + 1} "
+            f"of {tries})")
+        time.sleep(1.0)
+    if per_call is None:
+        raise AssertionError(f"{what}: the profiler saw no device kernel, "
+                             "so one launch a call is not shown")
+    if len(per_call) != 1:
+        raise AssertionError(f"{what} launched {per_call}, not one kernel")
+    return 1
+
+
 def check_close(name, out, ref, rtol, atol):
     import torch
     err = (out - ref).abs().max().item()
@@ -181,11 +222,12 @@ RWKV6_PROJECTIONS = [              # rwkv6-7b: time mix, then channel mix
     ("tm.wr", 4096, 4096), ("tm.wk", 4096, 4096), ("tm.wv", 4096, 4096),
     ("tm.wg", 4096, 4096), ("tm.wo", 4096, 4096), ("cm.wk", 14336, 4096),
     ("cm.wv", 4096, 14336), ("cm.wr", 4096, 4096)]
-# column counts K1 is held at: 1 and 8 bound the gather variant; 12 and 40
-# take the wide variant's 16-column pass and a second (8-column) group
-# after a 32-column one; 4 (decode) and 32 (a chunk-8 step of 4 slots) are
-# the serve's, and timed
-K1_COLUMNS = (1, 4, 8, 12, 32, 40)
+# column counts K1 is held at: 1 and 8 bound the gather variant, and 3
+# takes its loop for widths other than 1, 4 and 8; 12 and 40 take the wide
+# variant's 16-column pass and a second (8-column) group after a 32-column
+# one; 4 (decode) and 32 (a chunk-8 step of 4 slots) are the serve's, and
+# timed
+K1_COLUMNS = (1, 3, 4, 8, 12, 32, 40)
 K1_TIMED = (4, 32)
 
 
@@ -233,7 +275,7 @@ def k1_phase(dev, flush):
          ("wo-acsr-bf16", 4096, 4096, "acsr", "bf16", K1_COLUMNS, None),
          ("wide-int32", 1024, 40000, "aida", "f32", K1_COLUMNS, None),
          ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None)]
-    n_same = 0
+    n_same, calls = 0, {}
     for name, n_out, n_in, mode, vdt, columns, layer_of in cases:
         w = _k1_weight(gen, dev, n_out, n_in, name == "empty-rows")
         layer = sfc.compress(w, mode=mode, density=0.25, dtype=vdt)
@@ -306,11 +348,17 @@ def k1_phase(dev, flush):
                 iters=5, flush=flush)
             t_l, _ = median_ms(lambda: torch.matmul(x_lib, w_lib),
                                flush=flush)
+            if kern == "acsr_spmv_gather":
+                n_call = one_kernel(fn, "spmv", what)
+            else:
+                per_call = kernels_of(fn, "spmv")
+                n_call = None if per_call is None else len(per_call)
+            calls.setdefault(kern, set()).add(n_call)
             log(f"K1 {what} {n_out}x{n_in} rmax={b.rmax} nnz={nnz} "
                 f"err={err:.2e} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
                 f"library_ms={t_l:.4f} bound_ms={bms:.4f} ({by}) "
-                f"host_enqueue_ms={host:.4f} (rerun and every column "
-                "bit-identical)")
+                f"host_enqueue_ms={host:.4f} kernels_a_call={n_call} (rerun "
+                "and every column bit-identical)")
             row = None
             if layer_of == "llama":
                 row = totals[(kern, batch)]
@@ -322,7 +370,9 @@ def k1_phase(dev, flush):
                 row["bound_by"] = by
         del w, layer, b, w_lib, xs, alone, fours
     log(f"K1: {n_same} products, every column of each bit-identical to the "
-        "same column run alone and among 4 (gather and wide variants)")
+        "same column run alone and among 4 (gather and wide variants); "
+        "kernels a call by variant (profiler): "
+        + json.dumps({k: sorted(v, key=str) for k, v in calls.items()}))
     for (kern, batch), row in totals.items():
         log(f"K1 {kern} one layer (7 projections, B={batch}): "
             + " ".join(f"{k}={row[k]:.4f}" for k in keys))
@@ -330,6 +380,41 @@ def k1_phase(dev, flush):
         + " ".join(f"{k}={rwkv6[k]:.4f}" for k in keys))
     times = {kern: {batch: row} for (kern, batch), row in totals.items()}
     return errs, times, rwkv6
+
+
+def time_gather(dev, flush):
+    """``--time-gather``: K1's gather variant through ``acsr_spmv`` at 1, 4
+    and 8 columns, a llama3-8b layer (7 projections) and a rwkv6-7b layer
+    (8), aida 0.25, beside bf16 ``torch.matmul``; ms a layer, summed over
+    the projections, each the median of 20 with L2 flushed.  Uses only the
+    wrapper, so a checkout of another commit can be timed by copying this
+    script into it."""
+    import torch
+    from repro_torch.core import sparse_fc as sfc
+    from repro_torch.kernels import acsr_spmv as sp
+    widths = (1, 4, 8)
+    for model, projections in (("llama3-8b", PROJECTIONS),
+                               ("rwkv6-7b", RWKV6_PROJECTIONS)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ms = dict.fromkeys(widths, 0.0)
+        lib = dict.fromkeys(widths, 0.0)
+        for _, n_out, n_in in projections:
+            w = torch.randn((n_out, n_in), generator=gen,
+                            device=dev) * n_in ** -0.5
+            b = sfc.compress(w, mode="aida", density=0.25).blocked
+            w_lib = w.T.contiguous().to(torch.bfloat16)
+            xs = torch.randn((n_in, max(widths)), generator=gen, device=dev)
+            for m in widths:
+                x = xs[:, :m].contiguous()
+                ms[m] += median_ms(lambda: sp.acsr_spmv(b, x), flush=flush)[0]
+                x_lib = x.T.contiguous().to(torch.bfloat16)
+                lib[m] += median_ms(lambda: torch.matmul(x_lib, w_lib),
+                                    flush=flush)[0]
+            del w, b, w_lib, xs
+        for m in widths:
+            log(f"K1 gather one {model} layer ({len(projections)} "
+                f"projections, B={m}): kernel_ms={ms[m]:.4f} "
+                f"library_ms={lib[m]:.4f}")
 
 
 # ------------------------------------------------------------------ K2
@@ -950,14 +1035,16 @@ def k6_phase(dev, flush):
     """K6 (the fully-coded LUT product) against its plain version at
     llama3-8b's seven projections, B = 4 and 32, for both of the
     reference's tables (rank-1 outer(c, c) and tanh(lut) + 0.1 sign(lut)),
-    then ragged B, N, K and nc, at rtol = atol = 1e-4 (both add each
-    weight byte's two products in f32 and the byte sums in f64, so they
-    differ only in the order of the f64 adds); an integer table must
-    agree exactly, and a rerun repeat bit for bit.  Times per layer (seven projections) by B, beside the rank-1
-    table's one library call, torch.matmul(c[x], c[w].T) in f32 on the
-    codes dequantised beforehand.  Returns the max error, the times and
-    the launches of the entry point ``ops.lut_product_matmul`` over the
-    seven projections at both B, counted from 0."""
+    then ragged B, N, K and nc: bit-identical (both sum the same f32 runs
+    exactly in int64), and so within rtol = atol = 1e-4; an integer table
+    exact, a rerun bit-identical, every x row alone bit-identical to it
+    among 4 and among 32.  Times per layer (seven
+    projections) by B, beside the rank-1 table's one library call,
+    torch.matmul(c[x], c[w].T) in f32 on the codes dequantised beforehand,
+    and the least time for the work: its bytes, or one f32 addition a
+    weight byte and x row at the f32 add rate.  Returns the max error, the
+    times and the launches of the entry point ``ops.lut_product_matmul``
+    over the seven projections at both B, counted from 0."""
     import torch
     from repro_torch.kernels import lut_matmul as lm
     from repro_torch.kernels import ops
@@ -967,17 +1054,24 @@ def k6_phase(dev, flush):
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     tot = {m: dict.fromkeys(keys, 0.0) for m in (4, 32)}
     main = []
+
+    def exact(name, out, plain):
+        err = check_close(name, out, plain, 1e-4, 1e-4)
+        if not torch.equal(out, plain):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"(max abs err {err})")
+        return err
     for name, n, kdim in PROJECTIONS:
+        x32, w, packed, c = _k6_inputs(dev, gen, 32, n, kdim)
+        outer = torch.outer(c, c)
         for b in (4, 32):
-            x, w, packed, c = _k6_inputs(dev, gen, b, n, kdim)
-            outer = torch.outer(c, c)
+            x = x32[:b].contiguous()
             outs = []
             for table in (outer, torch.tanh(outer) + 0.1 * torch.sign(outer)):
                 outs.append(ops.lut_product_matmul(x, packed, table))
                 plain = ref.lut_product_matmul_ref(x, packed, table)
                 torch.cuda.synchronize()
-                err = check_close(f"lut_product {name} B={b}", outs[-1],
-                                  plain, 1e-4, 1e-4)
+                err = exact(f"lut_product {name} B={b}", outs[-1], plain)
                 max_err, n_cases = max(max_err, err), n_cases + 1
             # the rank-1 table is a product of dequantised codes: one f32
             # matmul (another summation order) is an independent oracle
@@ -985,24 +1079,39 @@ def k6_phase(dev, flush):
             check_close(f"lut_product {name} B={b} vs matmul", outs[0],
                         torch.matmul(xf, wf.T), 1e-3, 1e-3)
             # bytes: x codes, packed weights, the table, out; operations:
-            # the B * N * K table look-ups at the shared-memory load rate
+            # one f32 addition a weight byte and x row (a table of more
+            # than two codes a look-up has more entries than rows share it)
             moved = b * kdim + n * kdim // 2 + 16 * 16 * 4 + b * n * 4
-            bms, by = bound(moved, b * n * kdim, SMEM_LOADS_PER_S)
-            t_k, host = median_ms(lambda: lm.lut_product_matmul(x, packed,
-                                                                outer),
-                                  flush=flush)
+            bms, by = bound(moved, b * n * kdim // 2, F32_ADDS)
+
+            def fn():
+                return lm.lut_product_matmul(x, packed, outer)
+            t_k, host = median_ms(fn, flush=flush)
             t_p, _ = median_ms(lambda: ref.lut_product_matmul_ref(
                 x, packed, outer), iters=3, warmup=1, flush=flush)
             t_l, _ = median_ms(lambda: torch.matmul(xf, wf.T), flush=flush)
             log(f"K6 {name:4s} {n}x{kdim} B={b:2d} err={err:.2e} "
                 f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f}"
-                f" bound_ms={bms:.4f} ({by}) host_enqueue_ms={host:.4f}")
+                f" bound_ms={bms:.4f} ({by}) host_enqueue_ms={host:.4f} "
+                "(equal to the plain version)")
             row = tot[b]
             for key, val in zip(keys, (t_k, t_p, bms, t_l)):
                 row[key] += val
             row["bound_by"] = by
             main.append((b, (x, packed, outer)))
             del xf, wf, outs, plain
+        # every x row alone, and in fours, against it among 32
+        whole = lm.lut_product_matmul(x32, packed, outer)
+        alone = torch.cat([lm.lut_product_matmul(x32[i:i + 1].contiguous(),
+                                                 packed, outer)
+                           for i in range(32)])
+        fours = torch.cat([lm.lut_product_matmul(x32[i:i + 4].contiguous(),
+                                                 packed, outer)
+                           for i in range(0, 32, 4)])
+        if not (torch.equal(alone, whole) and torch.equal(fours, whole)):
+            raise AssertionError(f"lut_product {name}: a row alone or among 4"
+                                 " differs from it among 32")
+        del x32, w, packed, whole, alone, fours
     for b, n, kdim, nc in ((5, 1000, 4090, 16), (3, 77, 130, 9),
                            (33, 4096, 4096, 16), (1, 1, 2, 4)):
         x, w, packed, c = _k6_inputs(dev, gen, b, n, kdim, nc)
@@ -1011,8 +1120,8 @@ def k6_phase(dev, flush):
             out = ops.lut_product_matmul(x, packed, table)
             plain = ref.lut_product_matmul_ref(x, packed, table)
             torch.cuda.synchronize()
-            err = check_close(f"lut_product B={b} N={n} K={kdim} nc={nc}",
-                              out, plain, 1e-4, 1e-4)
+            err = exact(f"lut_product B={b} N={n} K={kdim} nc={nc}", out,
+                        plain)
             max_err, n_cases = max(max_err, err), n_cases + 1
     x, w, packed, _ = _k6_inputs(dev, gen, 6, 14336, 4096)
     ints = torch.arange(16, device=dev, dtype=torch.float32) - 8
@@ -1023,8 +1132,10 @@ def k6_phase(dev, flush):
     again = ops.lut_product_matmul(x, packed, table)
     if not torch.equal(again, ops.lut_product_matmul(x, packed, table)):
         raise AssertionError("lut_product differs on rerun")
-    log(f"K6 {n_cases} cases agree, max abs err {max_err:.2e}; an integer "
-        "table is exact and a rerun repeats bit for bit")
+    log(f"K6 {n_cases} cases equal to the plain version (max abs err "
+        f"{max_err:.2e}); an integer table is exact, a rerun repeats bit "
+        "for bit, and every x row alone equals it among 4 and among 32 at "
+        "the seven projections")
     for b, row in tot.items():
         log(f"K6 one layer (7 projections, B={b}): "
             + " ".join(f"{k}={row[k]:.4f}" for k in keys)
@@ -1044,6 +1155,23 @@ def k6_phase(dev, flush):
     log(f"K6 entry point: launches by B {launches} over "
         f"{len(PROJECTIONS)} calls each")
     return max_err, tot, launches
+
+
+def k6_kernels_a_call(dev):
+    """One call of the K6 entry point launches one kernel, at B = 4 and 32
+    (llama3-8b's wk), from the profiler; profiled beside K1's probes."""
+    import torch
+    from repro_torch.kernels import lut_matmul as lm
+    gen = torch.Generator(device=dev).manual_seed(8)
+    counts = {}
+    for b in (4, 32):
+        x, _, packed, c = _k6_inputs(dev, gen, b, 1024, 4096)
+        outer = torch.outer(c, c)
+        counts[b] = one_kernel(lambda: lm.lut_product_matmul(x, packed, outer),
+                               "lut_product", f"lut_product B={b}")
+    log(f"K6 kernels a call by B (profiler): "
+        f"{json.dumps(counts)}")
+    return counts
 
 
 # --------------------------------------------------------------- serve
@@ -1938,6 +2066,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the served llama3-8b to this many layers")
+    ap.add_argument("--time-gather", action="store_true",
+                    help="only time K1's gather variant at 1, 4 and 8 "
+                    "columns (no checks, no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -1957,10 +2088,15 @@ def main(argv=None) -> int:
     t_build = build.build_all()
     log(f"kernel build: {t_build:.2f} s ({len(build.SOURCES)} libraries)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    if args.time_gather:
+        time_gather(dev, flush)
+        log(smi)
+        return 0
     errs, times = {}, {}
     k1_errs, k1_times, k1_rwkv6 = _timed("K1", k1_phase, dev, flush)
     errs.update(k1_errs)
     times.update(k1_times)
+    _timed("K6 kernels a call", k6_kernels_a_call, dev)
     errs["paged_attention_decode"], times["paged_attention_decode"] = \
         _timed("K2", k2_phase, dev, flush)
     errs["paged_attention_chunk"], times["paged_attention_chunk"] = \

@@ -36,12 +36,18 @@
 // ms a layer of llama3-8b at B = 4 or 32.  x has no reuse across rows, so
 // every multiply-add needs its own x value.  Two variants:
 //
-// The gather variant (B <= 8, a decode step).  One thread a row part
-// gathers its x values from L2 for each live slot.  Each thread issues the
-// loads of UNROLL = 4 slots before it uses any (the code -> column -> x
-// chain is dependent) and reads a 4-column x row as one 16-byte load.  The
-// parts are threadIdx.y, the ranges blockIdx.y, whose partials a second
-// pass adds in range order.  Latency holds it at ~20 % of its byte bound.
+// The gather variant (B <= 8, a decode step).  One thread a row part,
+// parts threadIdx.y, ranges blockIdx.y.  Each thread loads the entries of
+// GATHER_U = 3 slots before it uses any (the code -> column -> x chain is
+// dependent; a warp's loads of a slot-row are coalesced), at every width,
+// and reads an x row of 4 or 8 columns as 16-byte loads.  It holds 40
+// registers, so three blocks fit an SM and the split plan's grid runs in
+// one wave.
+// The ranges meet in the same launch: the row block's last block to
+// finish adds them in range order (an int counter a row block, from
+// `build.counters`, reset by it).  A ring of slot-rows in shared memory
+// (16-byte `cp.async`, 4 stages) was timed against these direct loads and
+// lost (PERF.md).
 //
 // The wide variant (B > 8, a chunked-prefill step).  Rereading x from L2
 // per slot would cost 4 B a column, so x is staged in shared memory and
@@ -65,9 +71,10 @@
 //    slot would scatter each warp load over 32 sectors.  Instead each warp
 //    copies its part's whole slot-rows (values and column ids of its 32
 //    rows), coalesced, into a ring of E = 64 entries (fewer with more
-//    parts) in shared memory one tile ahead, and a lane reads its entry there.  A warp whose tile lies
-//    wholly in the ring (nearly always) walks it with no per-slot test;
-//    otherwise slots past the ring come from device memory.
+//    parts) in shared memory one tile ahead, and a lane reads its entry
+//    there.  A warp whose tile lies wholly in the ring (nearly always)
+//    walks it with no per-slot test; otherwise slots past the ring come
+//    from device memory.
 //  * What holds it: not shared-memory bandwidth (the floor, 128 B a slot,
 //    is ~0.21 ms a llama3-8b layer) and not the x reads (leaving them out
 //    saves 13 %), but the walk itself; see PERF.md for the designs timed.
@@ -88,8 +95,8 @@
 
 namespace {
 
-constexpr int MAXB = 8;            // gather variant: columns per pass
-constexpr int UNROLL = 4;          // gather variant: slots with loads in flight
+constexpr int MAXB = 8;            // gather variant: columns at most
+constexpr int GATHER_U = 3;        // gather variant: slots with loads in flight
 constexpr int CHUNK = 64;          // columns per chunk_off step
 constexpr int XT = 2 * CHUNK;      // wide variant: x tile rows (K)
 constexpr int XC = XT / CHUNK;     // chunk_off steps a tile
@@ -119,104 +126,201 @@ __device__ __forceinline__ float to_value(VT v, const float* cents) {
     return __bfloat162float(v);
 }
 
-// the same from device memory (codes and f32 values through the read-only
-// path)
-template <typename VT>
-__device__ __forceinline__ float load_value(const VT* p, const float* cents) {
-  if constexpr (std::is_same<VT, __nv_bfloat16>::value)
-    return to_value<VT>(*p, cents);
-  else
-    return to_value<VT>(__ldg(p), cents);
+// A column's partials merged: 0.f plus the nsplit partials at p, p +
+// stride, ... in order (four loads in flight), then the bias, then the
+// activation.  The gather variant's last block and the wide variant's
+// second pass both add their ranges here, in this one order.
+__device__ __forceinline__ float merge_column(const float* __restrict__ p,
+                                              size_t stride, int nsplit,
+                                              const float* __restrict__ bias,
+                                              int row, int act) {
+  constexpr int U = 4;
+  float v = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += U) {
+    float b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      b[u] = s0 + u < nsplit ? __ldcg(p + (s0 + u) * stride) : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s0 + u < nsplit) v += b[u];
+  }
+  if (bias != nullptr) v += bias[row];
+  return activate(v, act);
 }
 
 // The gather variant (x <= 8 columns) ------------------------------------
-// acc[j] = fmaf(w, x[c, j0 + j], acc[j]) for the nbc batch columns; one
-// 16-byte load when x has exactly four columns.
-__device__ __forceinline__ void gather_fma(float* acc, float w,
-                                           const float* __restrict__ x,
-                                           int c, int ldx, int j0, int nbc) {
-  const float* xr = x + (size_t)c * ldx + j0;
-  if (ldx == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(xr));
-    acc[0] = fmaf(w, v.x, acc[0]);
-    acc[1] = fmaf(w, v.y, acc[1]);
-    acc[2] = fmaf(w, v.z, acc[2]);
-    acc[3] = fmaf(w, v.w, acc[3]);
-    return;
+// The row block's ranges, added by its last block.  Kept out of line so
+// that its registers do not count against the streaming loop's.
+__device__ __noinline__ void merge_ranges(const float* __restrict__ part,
+                                          const float* __restrict__ bias,
+                                          float* __restrict__ out, int blk,
+                                          int br, int nbc, int nrows,
+                                          int nsplit, int act, int tid,
+                                          int nthreads) {
+  const size_t stride = (size_t)nrows * nbc;
+  for (int i = tid; i < br * nbc; i += nthreads) {
+    const int r = blk * br + i / nbc;
+    const size_t o = (size_t)r * nbc + i % nbc;
+    out[o] = merge_column(part + o, stride, nsplit, bias, r, act);
   }
-#pragma unroll
-  for (int j = 0; j < MAXB; ++j)
-    if (j < nbc) acc[j] = fmaf(w, __ldg(xr + j), acc[j]);
 }
 
-// grid (nb, nsplit), block (br, sy).  Each thread sums the live slots
-// s0 + ty, s0 + ty + sy, ... of its lane for `nbc` batch columns starting
-// at column j0 of x (row stride ldx); partials go through shared memory.
-template <typename VT, typename CT>
-__global__ void spmv_gather(const VT* __restrict__ vals,
-                             const CT* __restrict__ cols,
-                             const int* __restrict__ row_nnz,
-                             const float* __restrict__ cents,
-                             const float* __restrict__ x, int ldx, int j0,
-                             int nbc, int rmax, int slots_per_split,
-                             int nsplit, const float* __restrict__ bias,
-                             int act, float* __restrict__ out, int ldo,
-                             float* __restrict__ part) {
-  extern __shared__ float red[];  // [sy][br][nbc]
-  __shared__ float s_cents[16];
-  const int br = blockDim.x, sy = blockDim.y;
-  const int lane = threadIdx.x, ty = threadIdx.y;
-  const int blk = blockIdx.x, split = blockIdx.y;
-  const int nrows = gridDim.x * br;
-  if (cents != nullptr && ty == 0 && lane < 16) s_cents[lane] = cents[lane];
-  __syncthreads();
-
-  const int row = blk * br + lane;
-  const int nnz = row_nnz[row];
-  const int s0 = split * slots_per_split;
-  const int s1 = min(min(s0 + slots_per_split, rmax), nnz);
-  float acc[MAXB];
+// x row c's NB columns into v: 16-byte loads when x has exactly NB
+// columns (EXACT, NB a multiple of 4), else one load a column below nbc
+// (row stride nbc).
+template <int NB, bool EXACT>
+__device__ __forceinline__ void load_row(float (&v)[NB],
+                                         const float* __restrict__ x, int c,
+                                         int nbc) {
+  if constexpr (EXACT && NB % 4 == 0) {
+    const float4* xr =
+        reinterpret_cast<const float4*>(x) + (size_t)c * (NB / 4);
 #pragma unroll
-  for (int j = 0; j < MAXB; ++j) acc[j] = 0.f;
-
-  const size_t base = (size_t)blk * rmax * br + lane;
-  int s = s0 + ty;
-  // UNROLL slots at a time: their code/column loads are issued together,
-  // then their x gathers, so each thread keeps several loads in flight
-  for (; s + (UNROLL - 1) * sy < s1; s += UNROLL * sy) {
-    float w[UNROLL];
-    int c[UNROLL];
+    for (int q = 0; q < NB / 4; ++q) {
+      const float4 t = __ldg(xr + q);
+      v[4 * q] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  } else {
+    const float* xr = x + (size_t)c * nbc;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int j = 0; j < NB; ++j) v[j] = EXACT || j < nbc ? __ldg(xr + j) : 0.f;
+  }
+}
+
+// One thread's part: acc[j] = fmaf(w, x[col, j], acc[j]) over the live
+// slots s, s + sy, ... below s1 in order, for x's columns: exactly NB of
+// them (EXACT), or nbc < NB.  The code and column loads of GATHER_U slots
+// are issued before any is used (the code -> column -> x chain is
+// dependent), then their x rows, XU rows at a time before their FMAs (all
+// GATHER_U up to 4 columns; one at a time wider, as 40 registers hold no
+// more).
+template <int NB, bool EXACT, typename VT, typename CT>
+__device__ __forceinline__ void sum_part(float (&acc)[MAXB],
+                                         const VT* __restrict__ vals,
+                                         const CT* __restrict__ cols,
+                                         const float* cents,
+                                         const float* __restrict__ x,
+                                         int nbc, size_t base, int br, int s,
+                                         int s1, int sy) {
+  constexpr int XU = NB <= 4 ? GATHER_U : 1;
+  for (; s + (GATHER_U - 1) * sy < s1; s += GATHER_U * sy) {
+    float w[GATHER_U];
+    int c[GATHER_U];
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
       const size_t idx = base + (size_t)(s + u * sy) * br;
-      w[u] = load_value<VT>(vals + idx, s_cents);
+      w[u] = to_value<VT>(vals[idx], cents);
       c[u] = (int)cols[idx];
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      gather_fma(acc, w[u], x, c[u], ldx, j0, nbc);
+    for (int u0 = 0; u0 < GATHER_U; u0 += XU) {
+      float xv[XU][NB];
+#pragma unroll
+      for (int u = 0; u < XU; ++u)
+        load_row<NB, EXACT>(xv[u], x, c[u0 + u], nbc);
+#pragma unroll
+      for (int u = 0; u < XU; ++u)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          if (EXACT || j < nbc) acc[j] = fmaf(w[u0 + u], xv[u][j], acc[j]);
+    }
   }
   for (; s < s1; s += sy) {
     const size_t idx = base + (size_t)s * br;
-    gather_fma(acc, load_value<VT>(vals + idx, s_cents), x, (int)cols[idx],
-               ldx, j0, nbc);
+    const float w = to_value<VT>(vals[idx], cents);
+    float xv[NB];
+    load_row<NB, EXACT>(xv, x, (int)cols[idx], nbc);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (EXACT || j < nbc) acc[j] = fmaf(w, xv[j], acc[j]);
   }
+}
+
+// grid (nb, nsplit), block (br, sy): thread (lane, ty) sums part ty of its
+// row's slot range, the live slots s0 + ty, s0 + ty + sy, ... below s1, for
+// the nbc (<= MAXB) columns of x.  A warp's loads of one slot-row are
+// coalesced (its 32 rows' entries are adjacent).  The parts are added
+// through shared memory in part order.  With more than one range, each
+// block writes its range's sums to `part`, and the row block's last block
+// to finish (an int counter a row block, reset by it) adds the ranges in
+// range order, then the bias and the activation.  At most 40 registers a
+// thread, so three blocks fit an SM and the split plan's grid (about two
+// blocks an SM) runs in one wave.
+template <typename VT, typename CT>
+__global__ void __launch_bounds__(512, 3)
+    spmv_gather(const VT* __restrict__ vals, const CT* __restrict__ cols,
+                const int* __restrict__ row_nnz,
+                const float* __restrict__ cents, const float* __restrict__ x,
+                int nbc, int rmax, int slots_per_split,
+                const float* __restrict__ bias, int act,
+                float* __restrict__ out, float* __restrict__ part,
+                int* __restrict__ cnt) {
+  extern __shared__ float red[];  // the parts' sums [sy][br][nbc]
+  __shared__ float s_cents[16];
+  __shared__ int s_last;
+  const int br = blockDim.x, sy = blockDim.y;
+  const int lane = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * br + lane, nthreads = br * sy;
+  const int blk = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int nrows = gridDim.x * br;
+  const int row = blk * br + lane;
+  const int s0 = split * slots_per_split;
+  const int s1 = min(min(s0 + slots_per_split, rmax), row_nnz[row]);
+  if (cents != nullptr && tid < 16) s_cents[tid] = cents[tid];
+  __syncthreads();
+
+  float acc[MAXB];
+#pragma unroll
+  for (int j = 0; j < MAXB; ++j) acc[j] = 0.f;
+  const size_t base = (size_t)blk * rmax * br + lane;  // slot 0 of the row
+  // x of 1, 4 or 8 columns (a decode step of 1, 4 or 8 slots) takes its
+  // own loop; other widths the loop for up to MAXB
+#define SUM_PART(NB, EXACT)                                                 \
+  sum_part<NB, EXACT>(acc, vals, cols, s_cents, x, nbc, base, br, s0 + ty, \
+                      s1, sy)
+  if (nbc == 4)
+    SUM_PART(4, true);
+  else if (nbc == 1)
+    SUM_PART(1, true);
+  else if (nbc == MAXB)
+    SUM_PART(MAXB, true);
+  else
+    SUM_PART(MAXB, false);
+#undef SUM_PART
 
 #pragma unroll
   for (int j = 0; j < MAXB; ++j)
     if (j < nbc) red[(ty * br + lane) * nbc + j] = acc[j];
   __syncthreads();
-  if (ty != 0) return;
-  for (int j = 0; j < nbc; ++j) {
-    float v = 0.f;
-    for (int t = 0; t < sy; ++t) v += red[(t * br + lane) * nbc + j];
-    if (nsplit == 1) {
-      if (bias != nullptr) v += bias[row];
-      out[(size_t)row * ldo + j0 + j] = activate(v, act);
-    } else {
-      part[((size_t)split * nrows + row) * nbc + j] = v;
+  if (ty == 0)
+    for (int j = 0; j < nbc; ++j) {
+      float v = 0.f;
+      for (int t = 0; t < sy; ++t) v += red[(t * br + lane) * nbc + j];
+      if (nsplit == 1) {
+        if (bias != nullptr) v += bias[row];
+        out[(size_t)row * nbc + j] = activate(v, act);
+      } else {
+        part[((size_t)split * nrows + row) * nbc + j] = v;
+      }
     }
+  if (nsplit == 1) return;
+
+  // The row block's last block to finish adds the ranges in range order.
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    s_last = atomicAdd(cnt + blk, 1) == nsplit - 1;
+    if (s_last) __threadfence();
   }
+  __syncthreads();
+  if (!s_last) return;
+  merge_ranges(part, bias, out, blk, br, nbc, nrows, nsplit, act, tid,
+               nthreads);
+  if (tid == 0) cnt[blk] = 0;
 }
 
 // The wide variant (x > 8 columns) ---------------------------------------
@@ -473,18 +577,16 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// Second pass: sum the nsplit partials in split order, then bias + act.
+// The wide variant's second pass: each column's nsplit partials merged.
 __global__ void spmv_finalize(const float* __restrict__ part, int nsplit,
                               int nrows, int nbc,
                               const float* __restrict__ bias, int act,
                               float* __restrict__ out, int ldo, int j0) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nrows * nbc) return;
-  float v = 0.f;
-  for (int s = 0; s < nsplit; ++s) v += part[(size_t)s * nrows * nbc + i];
   const int row = i / nbc, j = i % nbc;
-  if (bias != nullptr) v += bias[row];
-  out[(size_t)row * ldo + j0 + j] = activate(v, act);
+  out[(size_t)row * ldo + j0 + j] =
+      merge_column(part + i, (size_t)nrows * nbc, nsplit, bias, row, act);
 }
 
 void finalize(const float* part, int nsplit, int nrows, int nbc,
@@ -498,21 +600,14 @@ void finalize(const float* part, int nsplit, int nrows, int nbc,
 template <typename VT, typename CT>
 int launch_gather(const void* vals, const void* cols, const int* row_nnz,
                   const float* cents, const float* x, const float* bias,
-                  float* out, float* part, int nb, int rmax, int br, int sy,
-                  int batch, int nsplit, int slots_per_split, int act,
-                  cudaStream_t stream) {
+                  float* out, float* part, int* cnt, int nb, int rmax, int br,
+                  int sy, int batch, int nsplit, int slots_per_split,
+                  int act, cudaStream_t stream) {
+  const size_t smem = (size_t)sy * br * batch * sizeof(float);
   const dim3 grid(nb, nsplit), block(br, sy);
-  const int nrows = nb * br;
-  for (int j0 = 0; j0 < batch; j0 += MAXB) {
-    const int nbc = batch - j0 < MAXB ? batch - j0 : MAXB;
-    const size_t smem = (size_t)sy * br * nbc * sizeof(float);
-    spmv_gather<VT, CT><<<grid, block, smem, stream>>>(
-        static_cast<const VT*>(vals), static_cast<const CT*>(cols), row_nnz,
-        cents, x, batch, j0, nbc, rmax, slots_per_split, nsplit, bias, act,
-        out, batch, part);
-    if (nsplit > 1)
-      finalize(part, nsplit, nrows, nbc, bias, act, out, batch, j0, stream);
-  }
+  spmv_gather<VT, CT><<<grid, block, smem, stream>>>(
+      static_cast<const VT*>(vals), static_cast<const CT*>(cols), row_nnz,
+      cents, x, batch, rmax, slots_per_split, bias, act, out, part, cnt);
   return (int)cudaGetLastError();
 }
 
@@ -623,18 +718,24 @@ extern "C" int acsr_spmv_wide_launch(const void* vals, const void* cols,
 #undef ACSR_CALL
 }
 
-// The gather variant: x of at most 8 columns.
+// The gather variant: x [n_cols, batch] of at most 8 columns, 16-byte
+// aligned; when nsplit > 1, part is scratch of nsplit * nb * br * batch
+// floats and cnt holds nb int counters, zero and left zero.  One launch.
 extern "C" int acsr_spmv_gather_launch(const void* vals, const void* cols,
                                        const void* row_nnz,
                                        const void* cents, const void* x,
                                        const void* bias, void* out,
-                                       void* part, int value_kind,
+                                       void* part, void* cnt, int value_kind,
                                        int col_kind, int nb, int rmax, int br,
                                        int sy, int batch, int nsplit,
                                        int slots_per_split, int act,
                                        void* stream) {
-  if (br <= 0 || br * sy > 1024 || batch <= 0 || batch > MAXB ||
-      nsplit <= 0 || (value_kind == 0 && cents == nullptr))
+  if (br <= 0 || br % 32 || sy <= 0 || br * sy > 512 || batch <= 0 ||
+      batch > MAXB || nsplit <= 0 || slots_per_split <= 0 ||
+      (long)(nsplit - 1) * slots_per_split >= rmax ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      (value_kind == 0 && cents == nullptr) ||
+      (nsplit > 1 && (part == nullptr || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int* nnz = static_cast<const int*>(row_nnz);
   const float* c = static_cast<const float*>(cents);
@@ -642,11 +743,11 @@ extern "C" int acsr_spmv_gather_launch(const void* vals, const void* cols,
   const float* bf = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(part);
+  int* k = static_cast<int*>(cnt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ACSR_CALL(VT, CT)                                                  \
-  launch_gather<VT, CT>(vals, cols, nnz, c, xf, bf, o, p, nb, rmax, br, sy, \
-                        batch, nsplit, slots_per_split, act, s)
+#define ACSR_CALL(VT, CT)                                                   \
+  launch_gather<VT, CT>(vals, cols, nnz, c, xf, bf, o, p, k, nb, rmax, br,  \
+                        sy, batch, nsplit, slots_per_split, act, s)
   ACSR_DISPATCH(ACSR_CALL);
 #undef ACSR_CALL
 }
-

@@ -238,20 +238,24 @@ def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,
                 bias: Optional[torch.Tensor],
                 activation: Optional[str]) -> torch.Tensor:
     """The variant for x of at most GATHER_COLS columns (a decode step):
-    one thread a row part gathers x from L2 per slot.  Returns [nblocks *
+    one thread a row part gathers x from L1 / L2 per slot; the ranges are
+    added by the row block's last block, in one launch.  Returns [nblocks *
     block_rows, B] f32."""
     nb, rmax, br = b.values.shape
     bsz = x2d.shape[1]
     dev = x2d.device
+    if x2d.data_ptr() % 16:          # the kernel reads x rows 16 bytes at
+        x2d = x2d.clone()            # a time
     sy, nsplit, per = split_plan(nb, rmax, br, build.sm_count(dev))
     out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
     part = torch.empty((nsplit * nb * br * bsz if nsplit > 1 else 1,),
                        dtype=torch.float32, device=dev)
-    status = _fn("acsr_spmv_gather_launch", 8, 10)(
-        *_ptrs(b, x2d, bias, out, part, with_off=False),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cnt = build.counters(dev, stream, nb)
+    status = _fn("acsr_spmv_gather_launch", 9, 10)(
+        *_ptrs(b, x2d, bias, out, part, with_off=False), cnt.data_ptr(),
         _VALUE_KINDS[b.values.dtype], _COL_KINDS[b.col_idx.dtype], nb, rmax,
-        br, sy, bsz, nsplit, per, ref.ACT_CODES[activation],
-        torch.cuda.current_stream(dev).cuda_stream)
+        br, sy, bsz, nsplit, per, ref.ACT_CODES[activation], stream)
     build.check(status, "acsr_spmv_gather")
     spmv_gather.launches += 1
     return out

@@ -103,11 +103,11 @@ def sm_count(device) -> int:
 
 
 def counters(device, stream: int, n: int):
-    """At least ``n`` int32 merge counters for launches on ``stream``: a
-    kernel whose last block of a tile merges the tile's partials finds
-    out it is last from its counter and resets it, so they are zero
-    between launches.  Made once per stream, so launches on two streams
-    never share one."""
+    """At least ``n`` int32 entries of scratch kept zero between launches
+    on ``stream``: merge counters (a kernel whose last block of a tile
+    merges the tile's partials finds out it is last from its counter and
+    resets it), and K6's int64 sums, which its last blocks zero again.
+    Made once per stream, so launches on two streams never share one."""
     import torch
     buf = _COUNTERS.get((device, stream))
     if buf is None or buf.numel() < n:

@@ -12,7 +12,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,18 +64,30 @@ def lut_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
 lut_matmul.launches = 0
 
 
-#: K6's geometry (``csrc/lut_product.cu``): codes per 16-byte load (a K
-#: split is a multiple of it), codes staged per pass, rows and batch rows
-#: of a block
-K6_RUN, K6_STEP, K6_ROWS, K6_BATCH = 32, 256, 64, 32
+#: K6's geometry (``csrc/lut_product.cu``): output rows a block, weight
+#: bytes a step (a K split is whole steps), x rows a block at most
+K6_ROWS, K6_STEP, K6_XROWS = 512, 32, 32
+
+
+def lut_product_plan(b: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(ksplit, steps a split) of K6: the row tiles times the x row groups
+    fill the card's SMs once (a block an SM) or K is split in whole steps
+    of K6_STEP weight bytes until they nearly do.  The sums are exact
+    integers, so the plan changes no bit of the result."""
+    steps = fc_tile.cdiv(k // 2, K6_STEP)
+    blocks = fc_tile.cdiv(n, K6_ROWS) * fc_tile.cdiv(b, K6_XROWS)
+    ksplit = max(1, min(steps, sms // blocks))
+    per = fc_tile.cdiv(steps, ksplit)
+    return fc_tile.cdiv(steps, per), per
 
 
 def lut_product_matmul(x_codes: torch.Tensor, codes_packed: torch.Tensor,
                        lut: torch.Tensor) -> torch.Tensor:
     """out[b, n] = Σ_{k<K} lut[w[n, k], x[b, k]]: x_codes [B, K] uint8,
     codes_packed [N, K/2] uint8, lut [nc, nc] (nc <= 16, every code < nc)
-    -> [B, N] f32.  A CUDA tensor launches K6 (or raises); a CPU tensor
-    takes the plain version."""
+    -> [B, N] f32, in the arithmetic of
+    :func:`repro_torch.kernels.ref.lut_product_matmul_ref`.  A CUDA tensor
+    launches K6 (or raises); a CPU tensor takes the plain version."""
     b, kdim = x_codes.shape
     n, kb = codes_packed.shape
     nc = lut.shape[0]
@@ -95,22 +107,22 @@ def lut_product_matmul(x_codes: torch.Tensor, codes_packed: torch.Tensor,
         return out.zero_()
     x_codes, codes_packed = x_codes.contiguous(), codes_packed.contiguous()
     lut = lut.to(torch.float32).contiguous()
-    # split K until the card has ~2 blocks per SM
-    blocks = fc_tile.cdiv(n, K6_ROWS) * fc_tile.cdiv(b, K6_BATCH)
-    ksplit = max(1, min(fc_tile.cdiv(2 * build.sm_count(dev), blocks),
-                        fc_tile.cdiv(kdim, K6_STEP)))
-    per_split = fc_tile.cdiv(fc_tile.cdiv(kdim, ksplit), K6_RUN) * K6_RUN
-    ksplit = fc_tile.cdiv(kdim, per_split)
-    part = torch.empty((ksplit * b * n if ksplit > 1 else 1,),
-                       dtype=torch.float64, device=dev)
+    ksplit, per = lut_product_plan(b, n, kdim, build.sm_count(dev))
+    # kept-zero scratch: a counter per (row tile, x row group), then the
+    # splits' int64 sums [N, B] at an 8-byte offset
+    tiles = fc_tile.cdiv(n, K6_ROWS) * fc_tile.cdiv(b, K6_XROWS)
+    sums_at = 2 * fc_tile.cdiv(tiles, 2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = build.counters(dev, stream,
+                             sums_at + 2 * n * b if ksplit > 1 else 1)
     fn = build.library("lut_product").lut_product_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     status = fn(x_codes.data_ptr(), codes_packed.data_ptr(), lut.data_ptr(),
-                out.data_ptr(), part.data_ptr(), b, n, kdim, nc, ksplit,
-                per_split, torch.cuda.current_stream(dev).cuda_stream)
+                out.data_ptr(), scratch.data_ptr(), b, n, kdim, nc, ksplit,
+                per, 4 * sums_at, stream)
     build.check(status, "lut_product_launch")
     lut_product_matmul.launches += 1
     return out

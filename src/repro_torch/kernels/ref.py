@@ -267,29 +267,48 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 LUT_SLICE = 1 << 24
 
 
+def lut_product_scale(lut: torch.Tensor) -> int:
+    """s of the fully-coded product's fixed point: 29 - e, where max |lut|
+    = f * 2^e with f in [0.5, 1) (frexp; e = 0 for an all-zero table), so
+    every entry of lut * 2^s is below 2^29."""
+    m = lut.float().abs().max().reshape(1).cpu()
+    return 29 - int(torch.frexp(m).exponent[0])
+
+
 def lut_product_matmul_ref(x_codes: torch.Tensor, codes_packed: torch.Tensor,
                            lut: torch.Tensor) -> torch.Tensor:
     """Fully-coded FC: out[b, n] = Σ_{k<K} lut[w[n, k], x[b, k]], both
     operands 4-bit codes (weights two per byte, low nibble first).
 
     x_codes [B, K] uint8, codes_packed [N, K/2] uint8, lut [nc, nc] ->
-    [B, N] f32.  The sum runs exactly over k < K: the two products of each
-    weight byte are added in f32, the byte sums in f64, and the total is
-    rounded to f32 once, as the kernel does.  N is taken in slices so the
-    [B, slice, K] index tensor stays near ``LUT_SLICE`` entries (the whole
-    of it at B 32, N 14336, K 4096 would be 1.9 G)."""
-    from repro_torch.core.codebook import unpack4
+    [B, N] f32, in the kernel's arithmetic, bit for bit: the table scaled
+    by 2^s (:func:`lut_product_scale`, exact); each weight byte's two
+    products added in f32 (its pair); each run of four bytes 4q .. 4q + 3
+    (zeros past K/2) added in f32, ((p0 + p1) + p2) + p3, and rounded to
+    an integer (ties to even); the runs added in int64 (exact, so in any
+    order); the total rounded to f32 and scaled by 2^-s.  N is taken in
+    slices so the [B, slice, K/2] pair tensor stays near ``LUT_SLICE``
+    entries (the whole of it at B 32, N 14336, K 4096 would be 0.9 G)."""
     b, kdim = x_codes.shape
     n, nc = codes_packed.shape[0], lut.shape[0]
-    table = lut.float().reshape(-1)
-    x = x_codes.long()[:, None, :]                         # [B, 1, K]
-    step = max(1, LUT_SLICE // max(1, b * kdim))
+    kb = kdim // 2
+    s = lut_product_scale(lut)
+    table = (lut.double() * 2.0 ** s).float()              # exact
+    x0 = x_codes[:, 0::2].long()[:, None, :]               # [B, 1, K/2]
+    x1 = x_codes[:, 1::2].long()[:, None, :]
+    pad = -kb % 4
+    step = max(1, LUT_SLICE // max(1, b * kb))
     out = []
     for n0 in range(0, n, step):
-        wc = unpack4(codes_packed[n0:n0 + step]).long()    # [s, K]
-        prods = table[wc[None] * nc + x]                   # [B, s, K]
-        pairs = prods.reshape(b, prods.shape[1], -1, 2).sum(dim=-1)
-        out.append(pairs.double().sum(dim=-1).float())
+        w = codes_packed[n0:n0 + step].long()[None]        # [1, s, K/2]
+        pairs = table[w & 15, x0] + table[w >> 4, x1]      # [B, s, K/2]
+        runs = torch.nn.functional.pad(pairs, (0, pad)).reshape(
+            b, pairs.shape[1], -1, 4)
+        run = (runs[..., 0] + runs[..., 1]) + runs[..., 2]
+        run = run + runs[..., 3]
+        total = torch.round(run).long().sum(dim=-1)
+        out.append((total.double().float().double()
+                    * 2.0 ** -s).float())
     if not out:
         return torch.zeros((b, 0), dtype=torch.float32, device=lut.device)
     return torch.cat(out, dim=1)

@@ -42,13 +42,14 @@ CASES = [(8, 128, 256, 16), (5, 128, 256, 16), (8, 200, 256, 16),
 def test_matches_reference(rng, b, n, k, nc, table):
     """Against the reference's oracle (an f32 sum over exactly K codes) at
     rtol = atol = 1e-4, the reference's own kernel tolerance: the port
-    adds each weight byte's two products in f32 and the byte sums in f64.
-    Against an exact f64 sum within 2e-5 (the pair sums' and the final
-    f32 rounding; measured 5.1e-6 at most).  Against the reference's Pallas kernel
+    adds each weight byte's two products in f32, runs of four byte sums in
+    f32, and the runs exactly (int64 fixed point).  Against an exact f64
+    sum within 2e-5 (the pair and run sums' and the final f32 rounding;
+    measured 9.5e-6 at most).  Against the reference's Pallas kernel
     at 1e-4 too, except that where K is no multiple of its tile bk the
     kernel adds (kp - k) * lut[0, 0] into its f32 sum and takes it off
     afterwards, which costs it a few ulps of that larger sum (2.1e-4 from
-    the exact sum at K = 200, where the port is 5.1e-6 from it): there
+    the exact sum at K = 200, where the port is under 1e-5 from it): there
     the tolerance grows by 4 ulps of (kp - k) * |lut[0, 0]| + max |out|."""
     x, packed = _codes(rng, b, n, k, nc)
     lut = _luts(rng, nc)[table]
