@@ -13,10 +13,10 @@ Phases, each of which exits non-zero when it fails:
    kernel beyond, both summing a column in one order) against its plain
    version at the seven llama3-8b projection geometries at 1, 3, 4, 8,
    12, 32 and 40 columns, rwkv6-7b's eight at 4, acsr with f32 and bf16
-   values, 40000 columns (int32 ids) and rows of row_nnz = 0, density
-   0.25; every call twice, bit-identical, and every column of every width
-   bit-identical to the same column run alone and among 4; the kernels a
-   call, from the profiler (the gather variant: one launch);
+   values, 40000 columns (int32 ids), rows of row_nnz = 0 and three dense
+   rows, density 0.25; every call twice, bit-identical, and every column
+   of every width bit-identical to the same column run alone and among 4;
+   the kernels a call, from the profiler (the gather variant: one launch);
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row, at
@@ -39,7 +39,8 @@ Phases, each of which exits non-zero when it fails:
 7. K9 (the rwkv6 WKV scan) against its plain version at rwkv6-7b's
    forward shape (B=2, H=64, T=2048, 64 x 64 state, bf16 r / k / v read
    through strided head views), the reference's test shapes, its
-   tiny-decay case, a ragged T and Dk 128 / Dv 256; K6 (the fully-coded
+   tiny-decay case, a ragged T, Dk 128 / Dv 256 and a 12-wide head
+   (staged by plain loads); K6 (the fully-coded
    LUT product) at the seven llama3-8b projections, B = 4 and 32, with
    the reference's two tables, ragged B / N / K / nc and an integer table,
    all bit-identical to the plain version (exact int64 sums), every x row
@@ -231,13 +232,15 @@ K1_COLUMNS = (1, 3, 4, 8, 12, 32, 40)
 K1_TIMED = (4, 32)
 
 
-def _k1_weight(gen, dev, n_out, n_in, empty_rows):
+def _k1_weight(gen, dev, n_out, n_in, name):
     import torch
     w = torch.randn((n_out, n_in), generator=gen, device=dev) * n_in ** -0.5
-    if empty_rows:        # rows of row_nnz = 0: every third row, and all of
-        w[::3] = 0.0      # rows 64-191 (two whole CUDA blocks of 64 rows)
+    if name == "empty-rows":   # rows of row_nnz = 0: every third row, and
+        w[::3] = 0.0           # all of rows 64-191 (two CUDA blocks of 64)
         w[64:192] = 0.0
-    return w
+    if name == "skewed-rows":  # three dense rows (pruning keeps them
+        w[[5, 700, 3000]] *= 100.0   # whole): their blocks' ranges read x
+    return w                         # across all 4096 columns
 
 
 def _k1_variant(batch):
@@ -251,9 +254,10 @@ def k1_phase(dev, flush):
     call run twice and bit-identical, and every column of every width
     bit-identical to the same column run alone and among 4 (one sum order
     a column): llama3-8b's seven projections (aida 0.25) at every column
-    count of K1_COLUMNS, rwkv6-7b's eight at 4 columns, and four more
+    count of K1_COLUMNS, rwkv6-7b's eight at 4 columns, and five more
     containers: acsr with f32 and with bf16 values, 40000 columns (int32
-    ids) and rows of row_nnz = 0.  Times at the serve's shapes.  Returns
+    ids), rows of row_nnz = 0 and three dense rows (at 1, 4, 8 columns).
+    Times at the serve's shapes.  Returns
     the max errors and llama3-8b's per-layer totals by variant, and
     rwkv6-7b's per-layer total at 4 columns."""
     import torch
@@ -274,10 +278,11 @@ def k1_phase(dev, flush):
         [("wo-acsr-f32", 4096, 4096, "acsr", "f32", K1_COLUMNS, None),
          ("wo-acsr-bf16", 4096, 4096, "acsr", "bf16", K1_COLUMNS, None),
          ("wide-int32", 1024, 40000, "aida", "f32", K1_COLUMNS, None),
-         ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None)]
+         ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None),
+         ("skewed-rows", 4096, 4096, "aida", "f32", (1, 4, 8), None)]
     n_same, calls = 0, {}
     for name, n_out, n_in, mode, vdt, columns, layer_of in cases:
-        w = _k1_weight(gen, dev, n_out, n_in, name == "empty-rows")
+        w = _k1_weight(gen, dev, n_out, n_in, name)
         layer = sfc.compress(w, mode=mode, density=0.25, dtype=vdt)
         b = layer.blocked
         if name == "wq":           # compression repeats bit for bit
@@ -926,8 +931,9 @@ def flash_times(dev, flush):
 # (B, H, T, Dk, Dv, r / k / v type, impl, chunk, tiny decay): the first is
 # rwkv6-7b's forward shape (2 x 2048 tokens, 64 heads of 64, read through
 # the model's strided head views); then the reference's own kernel test
-# shapes, its tiny-decay case, a ragged T under impl="scan" and the widest
-# head the kernel takes
+# shapes, its tiny-decay case, a ragged T under impl="scan", the widest
+# head the kernel takes, and a head whose rows are no whole 16-byte pieces
+# (24 bytes: the kernel stages it with plain loads)
 K9_CASES = [
     (2, 64, 2048, 64, 64, "bf16", "scan", 64, False),
     (2, 2, 128, 16, 16, "f32", "kernel", 32, False),
@@ -936,6 +942,7 @@ K9_CASES = [
     (1, 1, 64, 8, 8, "f32", "kernel", 16, True),
     (2, 64, 300, 64, 64, "bf16", "scan", 64, False),
     (1, 2, 100, 128, 256, "f32", "scan", 64, False),
+    (1, 3, 40, 12, 13, "bf16", "scan", 64, False),
 ]
 
 

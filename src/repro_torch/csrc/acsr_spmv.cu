@@ -45,9 +45,10 @@
 // one wave.
 // The ranges meet in the same launch: the row block's last block to
 // finish adds them in range order (an int counter a row block, from
-// `build.counters`, reset by it).  A ring of slot-rows in shared memory
-// (16-byte `cp.async`, 4 stages) was timed against these direct loads and
-// lost (PERF.md).
+// `build.counters`, reset by it).  Two rings of slot-rows in shared memory
+// were timed against these direct loads and lost (PERF.md): 16-byte
+// `cp.async` with a block barrier a stage, and `cp.async.bulk` under
+// mbarriers with the range's span of x columns copied beside it.
 //
 // The wide variant (B > 8, a chunked-prefill step).  Rereading x from L2
 // per slot would cost 4 B a column, so x is staged in shared memory and
