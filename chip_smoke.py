@@ -13,29 +13,30 @@ Phases, each of which exits non-zero when it fails:
    kernel beyond, both summing a column in one order) against its plain
    version at the seven llama3-8b projection geometries at 1, 3, 4, 8,
    12, 32 and 40 columns, rwkv6-7b's eight at 4, acsr with f32 and bf16
-   values, 40000 columns (int32 ids), rows of row_nnz = 0 and three dense
-   rows, density 0.25; every call twice, bit-identical, and every column
+   values, 40000 columns (int32 ids), rows of row_nnz = 0, three dense
+   rows and gemma2-2b's gelu gate, density 0.25; every call twice, bit-identical, and every column
    of every width bit-identical to the same column run alone and among 4;
    the kernels a call, from the profiler (the gather variant: one launch);
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row, at
-   Dh 80 and 96 too, and with an f32 q; every row run alone must equal
-   the same row among 4 bit for bit;
+   Dh 80, 96, 64 and 256 (softcap 50) too, and with an f32 q; every row
+   run alone must equal the same row among 4 bit for bit;
 4. K3 (paged-attention chunk) likewise at C = 1 and 8, with padded
    queries past the written context; every query of a chunk must equal K2
    on that query alone bit for bit, and every row alone the same row
    among 4;
 5. K4 (int8 FC) and K5 (codebook4 FC) against their plain versions at the
-   seven projections, M = 4 and 32 rows, with bias and silu; every call
-   twice, bit-identical, and every row alone bit-identical to the same
-   row among 4 and among 32;
+   seven projections, M = 4 and 32 rows, with bias and silu, and at
+   gemma2-2b's gate with gelu; every call twice, bit-identical, and every
+   row alone bit-identical to the same row among 4 and among 32;
 6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
    at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
-   (windows, softcaps, non-causal, Hkv 1-8, D 64 / 128, ragged T, f32);
-   a second dkv run must repeat bit for bit; K8's errors are logged beside
-   those of an f32-FMA K8, as its products run on the tensor cores with
-   f32 operands split into bf16 hi + lo;
+   (windows, softcaps, non-causal, Hkv 1-32, D 64 / 80 / 96 / 128 / 256,
+   ragged T, bf16 and f32); a second run of each must repeat bit for
+   bit; K8's errors are logged beside those of an f32-FMA K8, as its
+   products run on the tensor cores with f32 operands split into bf16
+   hi + lo; timed at each head dim's training shape;
 7. K9 (the rwkv6 WKV scan) against its plain version at rwkv6-7b's
    forward shape (B=2, H=64, T=2048, 64 x 64 state, bf16 r / k / v read
    through strided head views), the reference's test shapes, its
@@ -57,17 +58,24 @@ Phases, each of which exits non-zero when it fails:
    required to give none), with every launch counted;
 10. fresh int8 and codebook4 engines serve the same requests at chunk 8
     through K4 / K5 (one launch a call), then a short profiled serve each
-    (device busy, kernels a step, K4 / K5 as the "fc" family);
+    (device busy, kernels a step, K4 / K5 as the "fc" family); then
+    qwen1.5-0.5b (24 layers), h2o-danube-1.8b and gemma2-2b (4 layers)
+    and mixtral-8x7b (2 layers) at full width, aida 0.25, at chunk 1 and
+    8 with every launch counted (a dense family's chunk-8 tokens equal to
+    its chunk-1 ones up to near-tie flips);
 11. the training path: llama3-8b at full width, depth cut to 4 layers,
     ``trainer.run(attn_impl="flash", remat="dots")`` for 4 steps on 2 x
     2048 tokens through K7 / K8 (exact launch counts: K7 twice a layer and
     step, once forward and once in the recompute; finite and falling
     loss; peak memory), then one profiled step, then the same steps under
-    ``remat="none"`` beside it;
+    ``remat="none"`` beside it; then gemma2-2b (K7 / K8 at D 256, softcap
+    50) and h2o-danube-1.8b (D 80) at full width, 2 layers, 2 steps each,
+    finite losses, exact launch counts;
 12. a reduced llama3-8b served on the card and on the CPU gives the same
     greedy tokens (or differs only at a near-tie), in all three modes, and
     trained 3 steps on both from the same state gives the same losses
-    within 1e-2;
+    within 1e-2; each new family, reduced with its real head dim, gives
+    the CPU's tokens (or a near-tie) and SWA reclamation at chunk 1 and 8;
 13. rwkv6-7b at full width, all 32 layers: ``forward`` over 2 x 2048
     tokens (one K9 launch per layer, finite logits), equal to
     ``decode_step`` fed the first 32 tokens one at a time within the
@@ -128,6 +136,7 @@ PROJECTIONS = [                    # llama3-8b: (name, n_out, n_in)
     ("wq", 4096, 4096), ("wk", 1024, 4096), ("wv", 1024, 4096),
     ("wo", 4096, 4096), ("gate", 14336, 4096), ("up", 14336, 4096),
     ("down", 4096, 14336)]
+GELU_GATE = ("gemma2-gate-gelu", 9216, 2304)   # gemma2-2b's gelu gate
 
 
 def log(*a):
@@ -243,6 +252,34 @@ def _k1_weight(gen, dev, n_out, n_in, name):
     return w                         # across all 4096 columns
 
 
+def _family_projections():
+    """The compressed projections of the families that FAMILY_SERVES serves,
+    as (label, n_out, n_in, activation, bias), one for each distinct
+    (n_out, n_in, activation, bias) that llama3-8b's seven and GELU_GATE
+    do not already cover (a MoE layer's experts stay uncompressed: only
+    its attention)."""
+    from repro_torch import get
+    seen = {(o, i, {"gate": "silu"}.get(n), False) for n, o, i in PROJECTIONS}
+    seen.add((GELU_GATE[1], GELU_GATE[2], "gelu", False))
+    out = {}
+    for arch, _ in FAMILY_SERVES:
+        cfg = get(arch)
+        d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+        proj = [("wq", cfg.n_heads * hd, d, None, cfg.qkv_bias),
+                ("wk", cfg.n_kv * hd, d, None, cfg.qkv_bias),
+                ("wv", cfg.n_kv * hd, d, None, cfg.qkv_bias),
+                ("wo", d, cfg.n_heads * hd, None, False)]
+        if cfg.moe is None:
+            proj += [("gate", f, d, cfg.act, False), ("up", f, d, None, False),
+                     ("down", d, f, None, False)]
+        for name, o, i, act, bias in proj:
+            key = (o, i, act, bias)
+            if key not in seen:
+                out.setdefault(key, {}).setdefault(arch, []).append(name)
+    return [(", ".join(f"{a} {'/'.join(n)}" for a, n in by.items()), *key)
+            for key, by in out.items()]
+
+
 def _k1_variant(batch):
     from repro_torch.kernels.acsr_spmv import GATHER_COLS
     return "acsr_spmv_gather" if batch <= GATHER_COLS else "acsr_spmv_wide"
@@ -256,8 +293,12 @@ def k1_phase(dev, flush):
     a column): llama3-8b's seven projections (aida 0.25) at every column
     count of K1_COLUMNS, rwkv6-7b's eight at 4 columns, and five more
     containers: acsr with f32 and with bf16 values, 40000 columns (int32
-    ids), rows of row_nnz = 0 and three dense rows (at 1, 4, 8 columns).
-    Times at the serve's shapes.  Returns
+    ids), rows of row_nnz = 0, three dense rows (at 1, 4, 8 columns) and
+    gemma2-2b's gate with its tanh-gelu epilogue (at 1, 4, 32 columns);
+    and, untimed at 1, 4 and 32 columns, every other projection shape of
+    the families served at full width (``_family_projections``: qwen1.5's
+    q / k / v with their bias, h2o-danube's and gemma2-2b's).  Times at
+    the serve's shapes.  Returns
     the max errors and llama3-8b's per-layer totals by variant, and
     rwkv6-7b's per-layer total at 4 columns."""
     import torch
@@ -279,7 +320,11 @@ def k1_phase(dev, flush):
          ("wo-acsr-bf16", 4096, 4096, "acsr", "bf16", K1_COLUMNS, None),
          ("wide-int32", 1024, 40000, "aida", "f32", K1_COLUMNS, None),
          ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None),
-         ("skewed-rows", 4096, 4096, "aida", "f32", (1, 4, 8), None)]
+         ("skewed-rows", 4096, 4096, "aida", "f32", (1, 4, 8), None),
+         (*GELU_GATE, "aida", "f32", (1, 4, 32), None)] + \
+        [(n, o, i, "aida", "f32", (1, 4, 32), "held")
+         for n, o, i, _, _ in _family_projections()]
+    epilogue = {n: (a, b) for n, _, _, a, b in _family_projections()}
     n_same, calls = 0, {}
     for name, n_out, n_in, mode, vdt, columns, layer_of in cases:
         w = _k1_weight(gen, dev, n_out, n_in, name)
@@ -297,9 +342,10 @@ def k1_phase(dev, flush):
             raise AssertionError("40000 columns should take int32 ids")
         if name == "empty-rows" and int((b.row_nnz == 0).sum()) < 128:
             raise AssertionError("the empty-rows case has no empty rows")
-        act = "silu" if name == "gate" else None
+        act, has_bias = epilogue.get(name, (None, False))
+        act = {"gate": "silu", GELU_GATE[0]: "gelu"}.get(name, act)
         bias = torch.randn((n_out,), generator=gen, device=dev) \
-            if name in ("wq", "wide-int32") else None
+            if name in ("wq", "wide-int32") or has_bias else None
         rows = b.nblocks * b.block_rows
         pb = None if bias is None else \
             torch.nn.functional.pad(bias, (0, rows - n_out))
@@ -335,9 +381,10 @@ def k1_phase(dev, flush):
             n_same += 1
             err = check_close(what, out, plain, 1e-4, 1e-4)
             errs[kern] = max(errs[kern], err)
-            if batch not in K1_TIMED:
-                log(f"K1 {what} err={err:.2e} (rerun and every column "
-                    "bit-identical)")
+            if batch not in K1_TIMED or layer_of == "held":
+                log(f"K1 {what} {n_out}x{n_in} act={act} "
+                    f"bias={bias is not None} err={err:.2e} (rerun and "
+                    "every column bit-identical)")
                 continue
             moved = nnz * (b.values.element_size()
                            + b.col_idx.element_size()) + \
@@ -426,8 +473,10 @@ def time_gather(dev, flush):
 # contexts K2 and K3 are timed at (37: the serve's, in a table of 256)
 PAGED_TIMED = ((37, 256), (256, 256), (2048, 2048), (8192, 8192))
 # head dims beside llama3-8b's 128, held against the plain version:
-# (Dh, H, Hkv) of h2o-danube-1.8b and phi-3-vision-4.2b
-PAGED_HEAD_DIMS = ((80, 32, 8), (96, 32, 32))
+# (Dh, H, Hkv, the softcap of the windowed case) of h2o-danube-1.8b,
+# phi-3-vision-4.2b, qwen1.5-0.5b and gemma2-2b (its attention softcap)
+PAGED_HEAD_DIMS = ((80, 32, 8, 30.0), (96, 32, 32, 30.0), (64, 16, 16, 30.0),
+                   (256, 8, 4, 50.0))
 
 
 def _k2_inputs(dev, gen, ctx, kv_dtype, batch=4, h=32, hkv=8, dh=128,
@@ -493,8 +542,8 @@ def k2_phase(dev, flush):
     """K2 against its plain version at llama3-8b's geometry (contexts 37
     and 2048, bf16 and int8 pages, window -1 / 64, cap none / 30, a row
     with holes, an idle row), every row alone bit-identical to the same
-    row among 4; at Dh 80 and 96; with an f32 q; then timed at
-    PAGED_TIMED.  Returns (max abs err, {ctx: times})."""
+    row among 4; at Dh 80, 96, 64 and 256 (softcap 50); with an f32 q;
+    then timed at PAGED_TIMED.  Returns (max abs err, {ctx: times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import paged_attention
@@ -504,9 +553,9 @@ def k2_phase(dev, flush):
              for ctx in (37, 2048) for kv in ("bf16", "int8")
              for window in (-1, 64) for cap in (None, 30.0)]
     cases += [(dh, h, hkv, ctx, kv, window, cap)
-              for dh, h, hkv in PAGED_HEAD_DIMS for ctx in (37, 2048)
+              for dh, h, hkv, wcap in PAGED_HEAD_DIMS for ctx in (37, 2048)
               for kv in ("bf16", "int8")
-              for window, cap in ((-1, None), (64, 30.0))]
+              for window, cap in ((-1, None), (64, wcap))]
     for dh, h, hkv, ctx, kv_dtype, window, cap in cases:
         q, pool, table, cur = _k2_inputs(dev, gen, ctx, kv_dtype, h=h,
                                          hkv=hkv, dh=dh)
@@ -531,7 +580,7 @@ def k2_phase(dev, flush):
             max_err = max(max_err, check_close(what + " f32 q", out, plain,
                                                0, 1e-4))
             n += 1
-    log(f"K2 {n} cases agree (Dh 128, 80, 96; f32 q), max abs err "
+    log(f"K2 {n} cases agree (Dh 128, 80, 96, 64, 256; f32 q), max abs err "
         f"{max_err:.2e}; every row alone bit-identical to it among 4")
     rows, scale = {}, 128 ** -0.5
     for ctx, max_len in PAGED_TIMED:
@@ -585,7 +634,7 @@ def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None, **geo):
 
 def k3_phase(dev, flush):
     """K3 against its plain version at C = 1 and 8 over K2's cases (and
-    Dh 80 / 96 at C = 8): at C = 1 bit-identical to K2; at C = 8 every row
+    Dh 80 / 96 / 64 / 256 at C = 8): at C = 1 bit-identical to K2; at C = 8 every row
     bit-identical to K2 on that query alone at its position, and every
     batch row alone to it among 4; then timed at C = 8 at PAGED_TIMED.
     Returns (max abs err, {ctx: times})."""
@@ -601,9 +650,9 @@ def k3_phase(dev, flush):
              for kv in ("bf16", "int8") for window in (-1, 64)
              for cap in (None, 30.0)]
     cases += [(dh, h, hkv, 8, ctx, kv, window, cap)
-              for dh, h, hkv in PAGED_HEAD_DIMS for ctx in (37, 2048)
+              for dh, h, hkv, wcap in PAGED_HEAD_DIMS for ctx in (37, 2048)
               for kv in ("bf16", "int8")
-              for window, cap in ((-1, None), (64, 30.0))]
+              for window, cap in ((-1, None), (64, wcap))]
     for dh, h, hkv, chunk, ctx, kv_dtype, window, cap in cases:
         q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv_dtype, chunk,
                                            h=h, hkv=hkv, dh=dh)
@@ -629,7 +678,8 @@ def k3_phase(dev, flush):
         _alone_equals_among(lambda qq, tt, pp: paged_attention_chunk(
             qq, pool, tt, pp, window, scale=scale, cap=cap),
             q, table, q_pos, out, what)
-    log(f"K3 {n} cases agree (Dh 128, 80, 96), max abs err {max_err:.2e}; "
+    log(f"K3 {n} cases agree (Dh 128, 80, 96, 64, 256), max abs err "
+        f"{max_err:.2e}; "
         "every query bit-identical to K2 on it alone (C = 1 and 8), every "
         "row alone to it among 4")
     rows, scale = {}, 128 ** -0.5
@@ -669,7 +719,8 @@ def k3_phase(dev, flush):
 def fc_phase(dev, flush):
     """K4 (int8) and K5 (codebook4) against their plain versions at
     llama3-8b's seven projections, at the decode rows (M = 4) and a
-    chunk-8 step's rows (M = 32), with bias on wq and silu on gate; every
+    chunk-8 step's rows (M = 32), with bias on wq and silu on gate, and at
+    gemma2-2b's gate with its tanh-gelu epilogue (not timed); every
     call repeated bit for bit, and every row alone bit-identical to the
     same row among the others.  Times are summed over one layer's seven
     projections per M; the bound counts the bf16 tensor-core rate."""
@@ -683,10 +734,10 @@ def fc_phase(dev, flush):
     tot = {(mode, m): dict.fromkeys(keys, 0.0)
            for mode in errs for m in (4, 32)}
     unequal = []
-    for name, n_out, n_in in PROJECTIONS:
+    for name, n_out, n_in in PROJECTIONS + [GELU_GATE]:
         w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
             n_in ** -0.5
-        act = "silu" if name == "gate" else None
+        act = {"gate": "silu", GELU_GATE[0]: "gelu"}.get(name)
         bias = torch.randn((n_out,), generator=gen, device=dev) \
             if name == "wq" else None
         for mode in errs:
@@ -717,6 +768,10 @@ def fc_phase(dev, flush):
                 rows = (alone != out).any(dim=1).nonzero().flatten()
                 if len(rows):
                     unequal.append(f"{what}: {len(rows)} of {m} rows alone")
+                if name == GELU_GATE[0]:      # held, not part of a layer
+                    log(f"{'K4' if mode == 'int8' else 'K5'} {mode:9s} "
+                        f"{name} {n_out}x{n_in} M={m:2d} gelu err={err:.2e}")
+                    continue
                 moved = wbytes + m * n_in * 4 + m * n_out * 4 + \
                     (n_out * 4 if bias is not None else 0)
                 bms, by = bound(moved, 2 * m * n_out * n_in, BF16_FLOPS)
@@ -767,7 +822,22 @@ FLASH_CASES = [
     (2, 64, 333, "bf16", False, 64, 30.0),
     (8, 64, 1000, "f32", True, 128, None),
     (4, 128, 2048, "bf16", False, None, None),
+    # the head dims of h2o-danube (80), phi-3-vision (96) and gemma2 (256,
+    # softcap 50), in both dtypes
+    (8, 80, 2048, "bf16", True, None, None),
+    (8, 80, 333, "f32", True, 64, 30.0),
+    (4, 80, 300, "bf16", False, None, 50.0),
+    (32, 96, 512, "bf16", True, None, None),
+    (4, 96, 333, "f32", False, 128, None),
+    (8, 96, 300, "f32", True, None, 50.0),
+    (4, 256, 2048, "bf16", True, None, 50.0),
+    (4, 256, 512, "bf16", True, 128, 50.0),
+    (2, 256, 333, "f32", True, None, 50.0),
+    (4, 256, 300, "f32", False, 64, None),
 ]
+# the timed shapes, per head dim, at 2 x 2048 tokens: (model, H, Hkv, D)
+FLASH_TIMED = (("h2o-danube-1.8b", 32, 8, 80), ("phi-3-vision-4.2b", 32, 32, 96),
+               ("llama3-8b", 32, 8, 128), ("gemma2-2b", 8, 4, 256))
 # kernel vs plain version: both f32 over the same (bf16-exact) inputs,
 # summed in another order (tiles vs whole rows; dk / dv over G * T rows);
 # K7's and K8's f32 operands enter their tensor-core products as bf16
@@ -794,9 +864,10 @@ def _flash_inputs(dev, gen, hkv, d, t, dtype, b=2, h=32):
 
 
 def flash_phase(dev, flush):
-    """K7 and K8 against their plain versions over FLASH_CASES, dkv twice
-    (bit-identical), then times at the training shape.  Returns the max
-    errors and the timing rows by kernel."""
+    """K7 and K8 against their plain versions over FLASH_CASES, each
+    kernel twice (bit-identical), then times at each head dim's training
+    shape.  Returns the max errors and the timing rows by kernel and head
+    dim."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -809,12 +880,16 @@ def flash_phase(dev, flush):
         delta = (do * o).sum(dim=-1, keepdim=True)
         dq = fa.flash_attention_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
-        dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+        again = (*fa.flash_attention_fwd(q, k, v, **kw),
+                 fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+                 *fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw))
         torch.cuda.synchronize()
         what = (f"flash B=2 H=32 Hkv={hkv} D={d} T={t} {dtype} "
                 f"causal={causal} window={window} softcap={cap}")
-        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-            raise AssertionError(f"{what}: dkv differs on rerun")
+        for name, a, b in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse, dq, dk, dv), again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs on rerun")
         po, plse = ref.flash_attention_fwd_ref(q, k, v, **kw)
         got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
         want = {"o": po, "lse": plse,
@@ -834,10 +909,10 @@ def flash_phase(dev, flush):
         if (hkv, d, t, causal, window, cap) == (8, 128, 2048, True, None,
                                                 None):
             _sdpa_check(q, k, v, do, got)
-        del q, k, v, do, o, lse, dq, dk, dv, dk2, dv2, po, plse, got, want
+        del q, k, v, do, o, lse, dq, dk, dv, again, po, plse, got, want
     log(f"K7/K8 {len(FLASH_CASES)} cases agree (tolerance rtol = atol: "
         + ", ".join(f"{k} {v:g}" for k, v in FLASH_TOL.items())
-        + "); dkv bit-identical on rerun in every case")
+        + "); o, lse, dq, dk and dv bit-identical on rerun in every case")
     log(f"K7 max abs err over the cases (tensor cores, p as bf16 hi + lo): "
         f"o {errs['o']:.3g}, lse {errs['lse']:.3g} (tolerance "
         f"{FLASH_TOL['o']:g})")
@@ -865,65 +940,73 @@ def _sdpa_check(q, k, v, do, got):
 
 
 def flash_times(dev, flush):
-    """Kernel, plain-version and SDPA times at the training shape with the
-    least time the card needs: bytes (inputs read once, outputs written
-    once) over 3.35 TB/s vs the causal pairs' multiply-adds over the bf16
-    peak (the inputs are bf16).  Forward 4 flops per (pair, dim): q.k and
-    p.v; dq 6 (q.k, do.v, ds.k); dkv 8 (q.k, do.v, p.do, ds.q)."""
+    """Kernel, plain-version and SDPA times at each FLASH_TIMED shape (B 2,
+    T 2048, bf16, causal; gemma2's softcap left out so that SDPA computes
+    the same function) with the least time the card needs: bytes (inputs
+    read once, outputs written once) over 3.35 TB/s vs the causal pairs'
+    multiply-adds over the bf16 peak (the inputs are bf16).  Forward 4
+    flops per (pair, dim): q.k and p.v; dq 6 (q.k, do.v, ds.k); dkv 8
+    (q.k, do.v, p.do, ds.q).  Returns {kernel: {D: row}}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(5)
-    hkv, d, t = 8, 128, 2048
-    q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, "bf16")
-    b, h = q.shape[:2]
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = (do * o).sum(dim=-1, keepdim=True)
-    pairs = b * h * t * (t + 1) // 2
-    qkv = (q.numel() + 2 * k.numel()) * 2
-    rows_f32 = b * h * t * 4                        # lse or delta
-    work = {
-        "flash_attention_fwd": (qkv + q.numel() * 4 + rows_f32,
-                                4 * pairs * d),
-        "flash_attention_dq": (qkv + 2 * q.numel() * 4 + 2 * rows_f32,
-                               6 * pairs * d),
-        "flash_attention_dkv": (qkv + q.numel() * 4 + 2 * rows_f32
-                                + 2 * k.numel() * 4, 8 * pairs * d),
-    }
-    calls = {
-        "flash_attention_fwd": (
-            lambda: fa.flash_attention_fwd(q, k, v),
-            lambda: ref.flash_attention_fwd_ref(q, k, v)),
-        "flash_attention_dq": (
-            lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
-            lambda: ref.flash_attention_dq_ref(q, k, v, do, lse, delta)),
-        "flash_attention_dkv": (
-            lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
-            lambda: ref.flash_attention_dkv_ref(q, k, v, do, lse, delta)),
-    }
+    rows = {name: {} for name in FLASH}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
-    lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
-    ldo = do.to(torch.bfloat16)
-    t_lf, _ = median_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                     enable_gqa=True), flush=flush)
-    t_lb, _ = median_ms(lambda: torch.autograd.grad(
-        lo, (lq, lk, lv), ldo, retain_graph=True), flush=flush)
-    rows = {}
-    for name, (kern, plain) in calls.items():
-        bms, by = bound(*work[name], BF16_FLOPS)
-        t_k, host = median_ms(kern, flush=flush)
-        t_p, _ = median_ms(plain, iters=5, flush=flush)
-        fwd = name == "flash_attention_fwd"
-        t_l = t_lf if fwd else t_lb
-        log(f"{name} B={b} H={h} Hkv={hkv} T={t} D={d} bf16 causal "
-            f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-            f"({'SDPA forward' if fwd else 'SDPA backward'}) "
-            f"bound_ms={bms:.4f} ({by}) "
-            f"tflops={work[name][1] / t_k / 1e9:.2f} "
-            f"host_enqueue_ms={host:.4f}")
-        rows[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
-                      "bound_by": by, "library_ms": t_l}
+    for model, h, hkv, d in FLASH_TIMED:
+        t = 2048
+        q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, "bf16", h=h)
+        b = q.shape[0]
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+        pairs = b * h * t * (t + 1) // 2
+        qkv = (q.numel() + 2 * k.numel()) * 2
+        rows_f32 = b * h * t * 4                        # lse or delta
+        work = {
+            "flash_attention_fwd": (qkv + q.numel() * 4 + rows_f32,
+                                    4 * pairs * d),
+            "flash_attention_dq": (qkv + 2 * q.numel() * 4 + 2 * rows_f32,
+                                   6 * pairs * d),
+            "flash_attention_dkv": (qkv + q.numel() * 4 + 2 * rows_f32
+                                    + 2 * k.numel() * 4, 8 * pairs * d),
+        }
+        calls = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v),
+                lambda: ref.flash_attention_fwd_ref(q, k, v)),
+            "flash_attention_dq": (
+                lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+                lambda: ref.flash_attention_dq_ref(q, k, v, do, lse,
+                                                   delta)),
+            "flash_attention_dkv": (
+                lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
+                lambda: ref.flash_attention_dkv_ref(q, k, v, do, lse,
+                                                    delta)),
+        }
+        lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+        ldo = do.to(torch.bfloat16)
+        t_lf, _ = median_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                         enable_gqa=True), flush=flush)
+        t_lb, _ = median_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), ldo, retain_graph=True), flush=flush)
+        for name, (kern, plain) in calls.items():
+            bms, by = bound(*work[name], BF16_FLOPS)
+            t_k, host = median_ms(kern, flush=flush)
+            t_p, _ = median_ms(plain, iters=5, flush=flush)
+            fwd = name == "flash_attention_fwd"
+            t_l = t_lf if fwd else t_lb
+            log(f"{name} {model} B={b} H={h} Hkv={hkv} T={t} D={d} bf16 "
+                f"causal kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                f"library_ms={t_l:.4f} "
+                f"({'SDPA forward' if fwd else 'SDPA backward'}) "
+                f"bound_ms={bms:.4f} ({by}) "
+                f"tflops={work[name][1] / t_k / 1e9:.2f} "
+                f"host_enqueue_ms={host:.4f}")
+            rows[name][d] = {"model": model, "ms": t_k, "plain_ms": t_p,
+                             "bound_ms": bms, "bound_by": by,
+                             "library_ms": t_l}
+        del q, k, v, do, o, lse, delta, lq, lk, lv, lo, ldo
     return rows
 
 
@@ -1268,7 +1351,7 @@ def _serve(dev, eng, label, fc_kernel, chunk):
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     counts = {k: f.launches for k, f in fns.items()}
-    n_layers = eng.cfg.n_layers
+    n_layers, n_fc = eng.cfg.n_layers, _fc_per_layer(eng)
     steps = sess.stats["steps"]
     pre = sess.stats["prefill_steps"]
     n_tok = sum(len(r.tokens) for r in res)
@@ -1280,8 +1363,8 @@ def _serve(dev, eng, label, fc_kernel, chunk):
     # the FC kernel's launches by kernel and rows: 4 on a decode step, 4 *
     # chunk on a chunked one (K1: its gather variant up to 8 rows)
     by_rows = {}
-    for rows, n in ((4, 7 * n_layers * (steps - pre)),
-                    (4 * chunk, 7 * n_layers * pre)):
+    for rows, n in ((4, n_fc * n_layers * (steps - pre)),
+                    (4 * chunk, n_fc * n_layers * pre)):
         kern = _fc_variant(fc_kernel, rows)
         by_rows.setdefault(kern, {})
         by_rows[kern][rows] = by_rows[kern].get(rows, 0) + n
@@ -1302,6 +1385,18 @@ def _serve(dev, eng, label, fc_kernel, chunk):
     if sess.alloc.in_use:
         raise AssertionError(f"{label}: {sess.alloc.in_use} pages leaked")
     return res, sess, counts, by_rows
+
+
+def _fc_per_layer(eng):
+    """The compressed projections of one layer (7 in a gated dense layer,
+    4 in a MoE layer, whose expert stacks stay uncompressed)."""
+    from repro_torch.core.sparse_fc import CompressedFC
+
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return int(isinstance(tree, CompressedFC))
+    return count(eng.params["layers"])
 
 
 def _fc_variant(fc_kernel, rows):
@@ -1359,11 +1454,17 @@ def _row_count_probe(dev, eng):
     x = torch.randn((32, eng.cfg.d_model), generator=gen,
                     device=dev).to(torch.bfloat16)
     ops = {"rms_norm": lambda t: L.rms_norm(t, p["final_norm"]),
-           "K1 wq": lambda t: L.dense(t, lay["attn"]["wq"]),
-           "K1 mlp (gate silu * up, down)": lambda t: L.mlp(
-               t, lay["mlp"], eng.cfg.act),
-           "lm_head (_bf16_matmul, f32 cuBLAS)": lambda t: L._bf16_matmul(
-               t, p["lm_head"])}
+           "K1 wq": lambda t: L.dense(t, lay["attn"]["wq"],
+                                      lay["attn"].get("bq"))}
+    if "mlp" in lay:
+        ops[f"K1 mlp (gate {eng.cfg.act} * up, down)"] = lambda t: L.mlp(
+            t, lay["mlp"], eng.cfg.act)
+    if eng.cfg.tie_embeddings:
+        ops["tied lm_head (_bf16_matmul, f32 cuBLAS)"] = lambda t: \
+            L.unembed(t, p["embed"])
+    else:
+        ops["lm_head (_bf16_matmul, f32 cuBLAS)"] = lambda t: \
+            L._bf16_matmul(t, p["lm_head"])
     gaps = {}
     for name, op in ops.items():
         whole = op(x).float()
@@ -1685,6 +1786,178 @@ def cross_check(dev):
         log(f"cross-check: reduced llama3-8b {mode} chunk {chunk}, cuda vs "
             f"cpu greedy tokens: "
             f"{'identical' if not flips else f'{flips} near-tie flips'}")
+
+
+# ------------------------------------------------------------ families
+# the families served at full width, with their depth cuts (None: all)
+FAMILY_SERVES = (("qwen1.5-0.5b", None), ("h2o-danube-1.8b", 4),
+                 ("gemma2-2b", 4), ("mixtral-8x7b", 2))
+# the families trained at full width through K7 / K8, layers each
+FAMILY_TRAINS = (("gemma2-2b", 2), ("h2o-danube-1.8b", 2))
+FAMILY_TRAIN_STEPS = 2
+
+
+def _family(name, layers):
+    import dataclasses
+    from repro_torch import get
+    cfg = get(name)
+    if layers is not None and layers != cfg.n_layers:
+        log(f"depth cut: {name} {layers} of {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def serve_families_phase(dev):
+    """qwen1.5-0.5b, h2o-danube-1.8b, gemma2-2b and mixtral-8x7b at full
+    width (depth cut as FAMILY_SERVES says): ``Engine.compress(aida
+    0.25)`` serves the four requests at chunk 1 and at chunk 8, every
+    launch counted.  A dense family's chunk-8 tokens must equal its chunk-1
+    ones up to near-tie flips.  A MoE layer routes each step's tokens as
+    one group whose capacity follows its size (a decode step of 4 tokens:
+    capacity 1 an expert; a chunk of 32: 10), so mixtral's two serves may
+    drop different tokens and are not compared; its tokens are held
+    against the CPU in ``families_cross_check``.  Returns each serve's
+    launch counts."""
+    import gc
+
+    import torch
+    from repro_torch import CompressionSpec, Request
+    counts = {}
+    for name, layers in FAMILY_SERVES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = _family(name, layers)
+        eng = _compressed_engine(dev, cfg, CompressionSpec(
+            mode="aida", density=0.25), f"serve {name}")
+        for chunk in (1, 8):              # cuBLAS handles, first launches
+            warm = eng.session(batch_slots=4, max_len=256,
+                               scheduler={"chunk": chunk})
+            warm.submit(Request(prompt=[1, 2, 3], max_new=2, rid=0))
+            warm.run()
+        ref, sess1, c1, _ = _serve(dev, eng, f"serve {name} chunk 1",
+                                   "acsr_spmv", 1)
+        got, sess8, c8, _ = _serve(dev, eng, f"serve {name} chunk 8",
+                                   "acsr_spmv", 8)
+        counts[name] = {1: c1, 8: c8}
+        if cfg.moe is None:
+            flips = _near_tie_flips(ref, sess1.margins, got,
+                                    f"{name} chunk 8 vs chunk 1")
+            log(f"serve {name}: chunk-8 vs chunk-1 greedy tokens: "
+                f"{'identical' if not flips else f'{flips} near-tie flips'}; "
+                f"logits max abs drift "
+                f"{_logit_drift(ref, sess1, got, sess8):.6g}")
+            gaps = _row_count_probe(dev, eng)
+            log(f"serve {name}: ops' max abs gap, a row among 32 rows vs "
+                "among 4: " + json.dumps(gaps))
+            if gaps["K3 chunk of 8 vs K2 a query"] != 0.0:
+                raise AssertionError(f"serve {name}: a query of a K3 chunk "
+                                     "differs from K2 on it alone")
+        else:
+            m = cfg.moe
+            cap = [max(1, int(min(m.group_size, n) * m.top_k
+                              * m.capacity_factor / m.n_experts))
+                   for n in (4, 32)]
+            same = sum(a == b for r, g in zip(ref, got)
+                       for a, b in zip(r.tokens, g.tokens))
+            log(f"serve {name}: chunk 8 and chunk 1 route other token "
+                f"groups (capacity {cap[0]} vs {cap[1]} an expert); {same} "
+                f"of {sum(len(r.tokens) for r in ref)} tokens agree")
+        del eng, sess1, sess8
+    return counts
+
+
+def train_families_phase(dev):
+    """gemma2-2b (head dim 256, attention softcap 50) and h2o-danube-1.8b
+    (head dim 80) at full width, depth cut to FAMILY_TRAINS' layers:
+    ``trainer.run(attn_impl="flash", remat="dots")`` for FAMILY_TRAIN_STEPS
+    steps on 2 x 2048 tokens, every launch count set to 0 just before and
+    read just after: finite losses, K7 twice a layer and step, dq = dkv
+    once.  Returns K7 / K8's launches by head dim."""
+    import gc
+
+    import torch
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    from repro_torch.train import trainer
+    by_dim = {name: {} for name in FLASH}
+    for name, layers in FAMILY_TRAINS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = _family(name, layers)
+        it = DataIterator(cfg, PipelineConfig(seed=0, global_batch=2,
+                                              seq_len=2048))
+        lines = []
+        fns = _launch_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for f in fns.values():
+            f.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        trainer.run(cfg, _train_config(), it, FAMILY_TRAIN_STEPS,
+                    log_every=1, log=lines.append, device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in fns.items()}
+        want = dict.fromkeys(fns, 0)
+        want.update(dict.fromkeys(FLASH, cfg.n_layers * FAMILY_TRAIN_STEPS))
+        want["flash_attention_fwd"] *= 2   # forward, and "dots" recompute
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+        log(f"train {name} d_model {cfg.d_model} head_dim {cfg.head_dim}, "
+            f"{cfg.n_layers} layers, B=2 T=2048: {FAMILY_TRAIN_STEPS} steps "
+            f"in {wall:.2f} s (init included), lines {lines}, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        log(f"train {name}: launches {json.dumps(counts)} (expected "
+            f"{json.dumps(want)})")
+        if counts != want:
+            raise AssertionError(f"train {name} did not go through K7 / K8 "
+                                 "as often as its layers and steps say")
+        if len(losses) != FAMILY_TRAIN_STEPS or not all(
+                x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"train {name}: non-finite losses {losses}")
+        for k in FLASH:
+            by_dim[k][cfg.head_dim] = counts[k]
+    return by_dim
+
+
+def families_cross_check(dev):
+    """Each new family served on the card and on the CPU from the same
+    weights, at a reduced config that keeps the real head dim (``reduced``
+    with ``d_head=cfg.head_dim``: K2 / K3 at Dh 64, 80, 256 and 128), aida
+    at chunk 1 and 8: the same greedy tokens (or a first difference at a
+    near-tie) and the same SWA page reclamation (the reduced window is 32,
+    and the longest request runs to position 75)."""
+    import dataclasses
+
+    from repro_torch import CompressionSpec, Engine, Request, bridge, get
+    from repro_torch import reduced
+    for name, _ in FAMILY_SERVES:
+        cfg = dataclasses.replace(reduced(get(name)),
+                                  d_head=get(name).head_dim)
+        cpu = Engine(cfg, device="cpu", seed=0).compress(
+            CompressionSpec(mode="aida", density=0.25))
+        gpu = Engine(cfg, params=bridge.to_device(cpu.params, dev),
+                     device=dev)
+        for chunk in (1, 8):
+            out = {}
+            for where, eng in (("cpu", cpu), ("cuda", gpu)):
+                sess = eng.session(batch_slots=4, max_len=128,
+                                   scheduler={"chunk": chunk})
+                for i, n in enumerate((5, 9, 16, 60)):
+                    sess.submit(Request(prompt=[(7 * i + 3 * j) % cfg.vocab
+                                                for j in range(n)],
+                                        max_new=16, rid=i))
+                out[where] = (sess.run(), sess.margins,
+                              sess.stats["pages_reclaimed_swa"])
+            (ref, margins, rec_cpu), (got, _, rec_gpu) = out["cpu"], \
+                out["cuda"]
+            flips = _near_tie_flips(ref, margins, got,
+                                    f"cross-check {name} chunk {chunk}")
+            log(f"cross-check: reduced {name} (head dim {cfg.head_dim}) aida "
+                f"chunk {chunk}, cuda vs cpu greedy tokens: "
+                f"{'identical' if not flips else f'{flips} near-tie flips'}; "
+                f"SWA pages reclaimed cpu {rec_cpu} cuda {rec_gpu}")
+            if rec_cpu != rec_gpu:
+                raise AssertionError(f"cross-check {name}: the card and the "
+                                     "CPU reclaimed other SWA pages")
 
 
 # --------------------------------------------------------------- rwkv6
@@ -2037,13 +2310,14 @@ def rwkv6_cross_check(dev):
         + ("identical" if not flips else f"{flips} near-tie flips"))
 
 
-def _by_shape(times, launches):
-    """An FC kernel's numbers for the kernels line: per layer (seven
-    projections) at each row count the main path gives it, beside that
-    shape's launches, and at the top level their launch-weighted mean, so
-    the shape that takes most of the kernel's time weighs most."""
+def _by_shape(times, launches, key="rows"):
+    """A kernel's numbers for the kernels line at each shape the main path
+    gives it (an FC kernel's rows, per layer of seven projections; K7 /
+    K8's head dims), beside that shape's launches, and at the top level
+    their launch-weighted mean, so the shape that takes most of the
+    kernel's time weighs most."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    shapes = [{"rows": m, "launches": launches.get(m, 0), **times[m]}
+    shapes = [{key: m, "launches": launches.get(m, 0), **times[m]}
               for m in sorted(times)]
     n = sum(s["launches"] for s in shapes)
     top = {k: sum(s["launches"] * s[k] for s in shapes) / n for k in keys}
@@ -2128,11 +2402,15 @@ def main(argv=None) -> int:
                           layers))
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())
     launches["lut_matmul"] = sum(by_rows["lut_matmul"].values())
+    _timed("serve families", serve_families_phase, dev)
     train_counts = _timed("train", train_phase, dev, TRAIN_LAYERS)
+    flash_launches = _timed("train families", train_families_phase, dev)
     for name in FLASH:
-        launches[name] = train_counts[name]
+        flash_launches[name][128] = train_counts[name]
+        launches[name] = sum(flash_launches[name].values())
     _timed("cross-check", cross_check, dev)
     _timed("train cross-check", train_cross_check, dev)
+    _timed("families cross-check", families_cross_check, dev)
     eng, launches["rwkv6_scan"] = _timed("rwkv6 forward",
                                          rwkv6_forward_phase, dev)
     k1_rwkv6["launches"] = _timed("rwkv6 serve", rwkv6_serve_phase, dev,
@@ -2151,6 +2429,9 @@ def main(argv=None) -> int:
             row.update(_by_shape(times[name], by_rows[name]))
         elif name.startswith("paged_"):   # K2, K3: by context
             row.update(_by_context(times[name], launches[name]))
+        elif name in FLASH:               # K7, K8: by head dim
+            row.update(_by_shape(times[name], flash_launches[name],
+                                 "head_dim"))
         else:
             row.update(times[name])
         if name == "acsr_spmv_gather":   # and per rwkv6-7b layer, 4 columns

@@ -1,7 +1,8 @@
 """Model-level Deep-Compression: every eligible stacked projection in
 ``params["layers"]`` becomes a stacked CompressedFC (prune -> share ->
 pack), with one slot depth across layers so a layer view of the stack is
-a plain index."""
+a plain index.  MoE expert stacks ([L, E, d, f]) stay uncompressed, as in
+the JAX package; they are kept as their bf16 serving copy."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -12,6 +13,7 @@ from repro_torch.api.spec import CompressionSpec
 from repro_torch.core import quant as q
 from repro_torch.core import sparse_fc as sfc
 from repro_torch.kernels import acsr_spmv as sp
+from repro_torch.models import moe
 
 # projection leaves eligible for compression (2D per layer, stacked to 3D)
 TARGET_SUFFIXES = ("wq", "wk", "wv", "wo", "up", "down", "gate",
@@ -109,6 +111,8 @@ def compress_params(params: Dict, spec: CompressionSpec = None, *,
         return out
 
     def walk(tree, path):
+        if path[-1:] == ("moe",):
+            return moe.serving_copy(tree)
         if isinstance(tree, dict):
             return {kk: walk(v, path + (kk,)) for kk, v in tree.items()}
         return transform(path, tree)

@@ -11,7 +11,10 @@ step that has prompt tokens pending runs the chunked-prefill step (up to
 ``chunk`` prompt tokens per prefilling slot, one token per decoding slot);
 otherwise, and with chunk 1, prompts feed token by token through the
 decode step.  Pages are allocated host-side the step a sequence crosses a
-page boundary and freed the moment its request completes.
+page boundary and freed the moment its request completes.  Where every
+layer is windowed (h2o-danube, mixtral), a page that has slid wholly
+behind the widest window is freed after each step (SWA reclamation), so a
+sequence holds O(window) pages.
 
 The rwkv6 family serves through ``RecurrentSession`` with its per-slot
 state whatever ``kv_cache`` asks, as in the JAX package: no allocator and
@@ -74,7 +77,7 @@ class Session:
         self.stats = {"steps": 0, "prefill_steps": 0, "fills": 0,
                       "preemptions": 0, "chunk": self.chunk,
                       "page_allocs": 0, "pages_in_use": 0, "pages_peak": 0,
-                      "nonfinite_logit_rows": 0}
+                      "pages_reclaimed_swa": 0, "nonfinite_logit_rows": 0}
 
     def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
         if kv_cache != "paged":
@@ -91,6 +94,11 @@ class Session:
         # read device memory back)
         self.host_table = np.full(
             (self.slots, self.state["page_table"].shape[1]), -1, np.int64)
+        # pages can be reclaimed only when EVERY layer is windowed (one
+        # global layer keeps the whole history)
+        wins = self.cfg.layer_windows()
+        self._swa_window = max(wins) if wins and all(
+            w > 0 for w in wins) else None
 
     # ------------------------------------------------------------ public
     def submit(self, req: Request) -> None:
@@ -228,16 +236,43 @@ class Session:
                 self._preempt_slot(victim)
                 counts[victim] = 0
 
+    def _reclaim_swa_pages(self) -> None:
+        """Where every layer is windowed, free the pages that slid wholly
+        behind the widest window: host table and allocator now, the device
+        table's entries set to NO_PAGE (the kernels mask such an entry)."""
+        if self._swa_window is None:
+            return
+        events = []
+        for i, entry in enumerate(self.slot_entry):
+            if entry is None:
+                continue
+            dead = kvs.reclaimable_prefix(self.slot_pos[i],
+                                          self._swa_window, self.page_size)
+            for pi in range(min(dead, self.host_table.shape[1])):
+                pid = int(self.host_table[i, pi])
+                if pid >= 0:
+                    self.alloc.free([pid])
+                    self.host_table[i, pi] = -1
+                    events.append((i, pi))
+        if not events:
+            return
+        si, pi = (torch.tensor([e[n] for e in events], dtype=torch.long,
+                               device=self.device) for n in range(2))
+        self.state["page_table"][si, pi] = kvs.NO_PAGE
+        self.stats["pages_reclaimed_swa"] += len(events)
+        self.stats["pages_in_use"] = self.alloc.in_use
+
     # ------------------------------------------------------------ stepping
     def _advance(self):
         """A chunked step while any active slot still has prompt tokens
-        pending, a decode step otherwise."""
+        pending, a decode step otherwise; then the SWA reclamation."""
         if self.chunk > 1 and any(self.slot_pending[i]
                                   for i, e in enumerate(self.slot_entry)
                                   if e is not None):
             self._advance_chunked()
         else:
             self._advance_decode()
+        self._reclaim_swa_pages()
 
     def _active_counts(self, chunk: int) -> List[int]:
         """Tokens each slot feeds this step: up to ``chunk`` pending prompt
@@ -350,6 +385,7 @@ class RecurrentSession(Session):
         self.state = M.init_decode_state(self.cfg, self.slots, self.max_len,
                                          device=self.device)
         self.alloc = None
+        self._swa_window = None
 
     def _fits(self, entry: schd.SchedEntry) -> bool:
         return True

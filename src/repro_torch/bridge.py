@@ -5,8 +5,9 @@ turned into a numpy array (``jax.tree.map(np.asarray, tree)`` keeps the
 reference's containers and swaps their arrays); this module reads those
 containers by their field names and never imports the reference.
 
-Covered: raw param dicts (the dense family's and the rwkv6 family's
-``tm`` / ``cm`` trees), ``CompressedFC`` in all five modes (int8's
+Covered: raw param dicts (the dense family's, gemma2's post-norms
+``ln1p`` / ``ln2p``, the MoE family's ``moe`` router and [L, E, d, f]
+expert stacks, and the rwkv6 family's ``tm`` / ``cm`` trees), ``CompressedFC`` in all five modes (int8's
 ``QTensor`` codes and scales, codebook4's packed codes and centroids),
 stacked or single ``BlockedACSR`` (int16 or int32 col_idx, uint8 codes or
 f32 / bf16 values, [L, 16] centroids), the paged decode state

@@ -1,0 +1,8 @@
+"""Qwen1.5-0.5B — MHA with QKV bias, 152k vocab. [hf:Qwen/Qwen1.5-0.5B]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CFG = register(ArchConfig(
+    name="qwen1.5-0.5b", family="dense",
+    n_layers=24, d_model=1024, n_heads=16, n_kv=16, d_ff=2816,
+    vocab=151936, d_head=64, qkv_bias=True, rope_theta=1_000_000.0,
+    tie_embeddings=True, source="hf:Qwen/Qwen1.5-0.5B"))

@@ -70,9 +70,17 @@
 //    exp(-1e30 - m) = 0 exactly, so skipping changes nothing.
 //  * Ragged T is masked in the kernel: rows and keys past T stage as 0,
 //    score -1e30, and are not stored.
-//  * Tiles need up to ~177 KB of shared memory at D = 128 (dkv, f32; the
-//    forward 68 KB), above the 48 KB static limit: dynamic shared memory
-//    with the opt-in.
+//  * Head dims 32, 64, 80, 96, 128 and 256.  Up to 128, K7 keeps its q
+//    fragments in registers and K8 prefetches the next tile into them; at
+//    256 the accumulators (D / 2 columns a warp) need those registers, so
+//    K7 reads q's fragments from shared memory each kv tile and K8 stages
+//    each tile straight into shared memory.  K8's f32 planes of 64 rows
+//    at D = 256 would need 264-282 KB, so there its query tiles are 32
+//    rows (bq_of).  D = 80 leaves K8's phase 2 an odd count of 8-column
+//    n-tiles (40 columns a warp), taken by one ldmatrix.x2 step.
+//  * Tiles need up to ~218 KB of shared memory (dkv, f32, D = 256; the
+//    forward at D = 128 68 KB), above the 48 KB static limit: dynamic
+//    shared memory with the opt-in.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -137,42 +145,74 @@ struct Ld {
   static constexpr int LDD = D + 8;  // bf16 per tile row, ldmatrix-friendly
 };
 
-// A [64][D] tile of T (rows past T as 0) through registers: 16-byte pieces
+// A [R][D] tile of T (rows past T as 0) through registers: 16-byte pieces
 // loaded early (prefetch), stored later into the hi (and, for f32, lo)
-// planes.
-template <typename T, int D, int N = NTH>
+// planes.  N threads share the R * CH pieces; where N does not divide them
+// (D = 80 in bf16: 640 pieces over 256 threads) the last round is partial.
+template <typename T, int D, int N = NTH, int R = BT>
 struct TileLoad {
   static constexpr int CH = D * (int)sizeof(T) / 16;  // pieces per row
-  static constexpr int PER = BT * CH / N;
+  static constexpr int ALL = R * CH;
+  static constexpr int PER = (ALL + N - 1) / N;
   uint4 r[PER];
+  __device__ __forceinline__ static bool has(int idx) {
+    return ALL % N == 0 || idx < ALL;
+  }
   __device__ __forceinline__ void load(const T* src, int row0, int t_len,
                                        int tid) {
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int idx = tid + i * N, row = idx / CH, ch = idx % CH;
-      r[i] = row0 + row < t_len
-                 ? __ldg(reinterpret_cast<const uint4*>(
-                             src + (size_t)(row0 + row) * D) + ch)
-                 : make_uint4(0, 0, 0, 0);
+      if (has(idx))
+        r[i] = row0 + row < t_len
+                   ? __ldg(reinterpret_cast<const uint4*>(
+                               src + (size_t)(row0 + row) * D) + ch)
+                   : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ __forceinline__ static void put(uint4 x, int idx,
+                                             __nv_bfloat16* hi,
+                                             __nv_bfloat16* lo) {
+    constexpr int LDD = Ld<D>::LDD;
+    const int row = idx / CH, ch = idx % CH;
+    if constexpr (std::is_same<T, float>::value) {
+      uint2 h, l;
+      mt::split2(__uint_as_float(x.x), __uint_as_float(x.y), h.x, l.x);
+      mt::split2(__uint_as_float(x.z), __uint_as_float(x.w), h.y, l.y);
+      *reinterpret_cast<uint2*>(hi + row * LDD + 4 * ch) = h;
+      *reinterpret_cast<uint2*>(lo + row * LDD + 4 * ch) = l;
+    } else {
+      *reinterpret_cast<uint4*>(hi + row * LDD + 8 * ch) = x;
     }
   }
   __device__ __forceinline__ void store(__nv_bfloat16* hi,
                                         __nv_bfloat16* lo, int tid) const {
-    constexpr int LDD = Ld<D>::LDD;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = tid + i * N, row = idx / CH, ch = idx % CH;
-      if constexpr (std::is_same<T, float>::value) {
-        uint2 h, l;
-        mt::split2(__uint_as_float(r[i].x), __uint_as_float(r[i].y), h.x,
-                   l.x);
-        mt::split2(__uint_as_float(r[i].z), __uint_as_float(r[i].w), h.y,
-                   l.y);
-        *reinterpret_cast<uint2*>(hi + row * LDD + 4 * ch) = h;
-        *reinterpret_cast<uint2*>(lo + row * LDD + 4 * ch) = l;
-      } else {
-        *reinterpret_cast<uint4*>(hi + row * LDD + 8 * ch) = r[i];
+    for (int i = 0; i < PER; ++i)
+      if (has(tid + i * N)) put(r[i], tid + i * N, hi, lo);
+  }
+  // load and store at once, in rounds of at most 8 pieces a thread (no
+  // tile stays in registers across the products)
+  __device__ __forceinline__ static void copy(const T* src, int row0,
+                                              int t_len, __nv_bfloat16* hi,
+                                              __nv_bfloat16* lo, int tid) {
+    constexpr int RB = PER < 8 ? PER : 8;
+#pragma unroll
+    for (int i0 = 0; i0 < PER; i0 += RB) {
+      uint4 x[RB];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const int idx = tid + (i0 + i) * N, row = idx / CH, ch = idx % CH;
+        if (i0 + i < PER && has(idx))
+          x[i] = row0 + row < t_len
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                                 src + (size_t)(row0 + row) * D) + ch)
+                     : make_uint4(0, 0, 0, 0);
       }
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+        if (i0 + i < PER && has(tid + (i0 + i) * N))
+          put(x[i], tid + (i0 + i) * N, hi, lo);
     }
   }
 };
@@ -210,6 +250,15 @@ __device__ __forceinline__ void mma_tile(float (*acc)[4],
         if (ALO) mt::mma(acc[2 * np + j], xl, yh + 2 * j);
       }
     }
+    if constexpr (NT % 2 == 1) {  // an odd last n-tile (D = 80: 40 columns)
+      static_assert(KN, "an odd n-tile count needs a k-major B");
+      uint32_t yh[2], yl[2];
+      mt::load_b_kn1(yh, bh, ldb, n0 + 8 * (NT - 1), k, lane);
+      if (BLO) mt::load_b_kn1(yl, bl, ldb, n0 + 8 * (NT - 1), k, lane);
+      mt::mma(acc[NT - 1], xh, yh);
+      if (BLO) mt::mma(acc[NT - 1], xh, yl);
+      if (ALO) mt::mma(acc[NT - 1], xl, yh);
+    }
   }
 }
 
@@ -246,24 +295,39 @@ struct Carve {
   }
 };
 
+// A wide head (D > 128) needs the registers for its accumulators (D / 2
+// columns a warp): K7 then reads q's fragments from shared memory each kv
+// tile instead of keeping them, and K8 stages each tile straight into
+// shared memory instead of prefetching the next one into registers.
+__host__ __device__ constexpr bool wide(int d) { return d > 128; }
+
+// The streamed query tile of K8 (dq: the block's own rows; dkv: the q / do
+// tiles it walks): 64 rows, or 32 for f32 inputs of a wide head, whose
+// planes of 64 rows would not fit in shared memory.
+template <typename T, int D>
+__host__ __device__ constexpr int bq_of() {
+  return std::is_same<T, float>::value && wide(D) ? 32 : 64;
+}
+
 template <typename T, int D>
 constexpr size_t dq_smem() {
-  constexpr bool S = std::is_same<T, float>::value;
-  return (size_t)2 * BT * Ld<D>::LDD * ((S ? 2 : 1) * 3 + 2) +
-         (size_t)2 * 2 * BT * LDS_;
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1, BQ = bq_of<T, D>();
+  return (size_t)2 * Ld<D>::LDD * (BQ * (P + 2) + BT * 2 * P) +
+         (size_t)2 * 2 * BQ * LDS_;
 }
 template <typename T, int D>
 constexpr size_t dkv_smem() {
-  constexpr bool S = std::is_same<T, float>::value;
-  return (size_t)2 * BT * Ld<D>::LDD * ((S ? 2 : 1) * 3 + 2) +
-         (size_t)2 * 4 * BT * LDS_ + 2 * BT * sizeof(float);
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1, BQ = bq_of<T, D>();
+  return (size_t)2 * Ld<D>::LDD * (BT * 2 * P + BQ * (P + 2)) +
+         (size_t)2 * 4 * BT * (BQ + 8) + 2 * BQ * sizeof(float);
 }
 
-// q and do tiles of query head bh from q0, and lse (threads 0-63) or
-// delta (64-127) of their rows, into registers
-template <typename T, int D>
-__device__ __forceinline__ void fetch_q(TileLoad<T, D>& qt,
-                                        TileLoad<float, D>& gt, float& rows,
+// q and do tiles of query head bh from q0, and lse (threads 0 .. BQ - 1) or
+// delta (BQ .. 2 BQ - 1) of their rows, into registers
+template <typename T, int D, int BQ>
+__device__ __forceinline__ void fetch_q(TileLoad<T, D, NTH, BQ>& qt,
+                                        TileLoad<float, D, NTH, BQ>& gt,
+                                        float& rows,
                                         const T* __restrict__ q,
                                         const float* __restrict__ dout,
                                         const float* __restrict__ lse,
@@ -272,43 +336,43 @@ __device__ __forceinline__ void fetch_q(TileLoad<T, D>& qt,
                                         int tid) {
   qt.load(q + bh * p.T * D, q0, p.T, tid);
   gt.load(dout + bh * p.T * D, q0, p.T, tid);
-  const int qi = q0 + (tid & (BT - 1));
-  if (tid < 2 * BT)
-    rows = qi < p.T ? (tid < BT ? lse : delta)[bh * p.T + qi] : 0.f;
+  const int qi = q0 + (tid & (BQ - 1));
+  if (tid < 2 * BQ)
+    rows = qi < p.T ? (tid < BQ ? lse : delta)[bh * p.T + qi] : 0.f;
 }
 
 // ---------------------------------------------------------------- K8 dq
-// grid B * H * ceil(T / 64) (the q tiles with most kv tiles first), block
-// 256.  dq = ds @ k * scale over the open kv tiles.
+// grid B * H * ceil(T / BQ) (the q tiles with most kv tiles first), block
+// 256.  dq = ds @ k * scale over the open kv tiles.  Warp w: rows 16 (w %
+// RG) of the BQ, and of the 64 keys (phase 1) or the D columns (phase 2)
+// the (w / RG)-th of CG parts.
 template <typename T, int D>
 __global__ void __launch_bounds__(NTH, 1)
     flash_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dq, int batch, Params p) {
-  constexpr bool S = std::is_same<T, float>::value;
-  constexpr int LDD = Ld<D>::LDD, NT2 = D / 16;  // phase-2 n-tiles
+  constexpr bool S = std::is_same<T, float>::value, PF = !wide(D);
+  constexpr int BQ = bq_of<T, D>(), RG = BQ / 16, CG = NW / RG;
+  constexpr int LDD = Ld<D>::LDD, NT1 = BT / CG / 8, DC = D / CG,
+                NT2 = DC / 8;  // phase-1 and phase-2 n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Carve cv{smem_raw};
-  __nv_bfloat16 *qh = cv.take(BT * LDD), *ql = cv.take(BT * LDD, S);
-  __nv_bfloat16 *gh = cv.take(BT * LDD), *gl = cv.take(BT * LDD);
+  __nv_bfloat16 *qh = cv.take(BQ * LDD), *ql = cv.take(BQ * LDD, S);
+  __nv_bfloat16 *gh = cv.take(BQ * LDD), *gl = cv.take(BQ * LDD);
   __nv_bfloat16 *kh = cv.take(BT * LDD), *kl = cv.take(BT * LDD, S);
   __nv_bfloat16 *vh = cv.take(BT * LDD), *vl = cv.take(BT * LDD, S);
-  __nv_bfloat16 *dsh = cv.take(BT * LDS_), *dsl = cv.take(BT * LDS_);
+  __nv_bfloat16 *dsh = cv.take(BQ * LDS_), *dsl = cv.take(BQ * LDS_);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, cq = lane & 3;
-  const int nq = (p.T + BT - 1) / BT, nbh = batch * p.H;
-  const int bh = blockIdx.x % nbh, q0 = (nq - 1 - blockIdx.x / nbh) * BT;
+  const int wm = warp % RG, wn = warp / RG, g = lane >> 2, cq = lane & 3;
+  const int nq = (p.T + BQ - 1) / BQ, nbh = batch * p.H;
+  const int bh = blockIdx.x % nbh, q0 = (nq - 1 - blockIdx.x / nbh) * BQ;
   const int b = bh / p.H, G = p.H / p.Hkv, hk = (bh % p.H) / G;
   const size_t kv_off = (size_t)(b * p.Hkv + hk) * p.T * D;
-  {
-    TileLoad<T, D> ql_;
-    TileLoad<float, D> gl_;
-    ql_.load(q + (size_t)bh * p.T * D, q0, p.T, tid);
-    gl_.load(dout + (size_t)bh * p.T * D, q0, p.T, tid);
-    ql_.store(qh, ql, tid);
-    gl_.store(gh, gl, tid);
-  }
+  TileLoad<T, D, NTH, BQ>::copy(q + (size_t)bh * p.T * D, q0, p.T, qh, ql,
+                                tid);
+  TileLoad<float, D, NTH, BQ>::copy(dout + (size_t)bh * p.T * D, q0, p.T, gh,
+                                    gl, tid);
   float lr[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -319,33 +383,41 @@ __global__ void __launch_bounds__(NTH, 1)
   float acc[NT2][4];
   zero<NT2>(acc);
   int lo, hi;
-  kv_tiles(q0, BT, BT, p, lo, hi);
+  kv_tiles(q0, BQ, BT, p, lo, hi);
   TileLoad<T, D> kt, vt;
-  kt.load(k + kv_off, lo * BT, p.T, tid);
-  vt.load(v + kv_off, lo * BT, p.T, tid);
+  if constexpr (PF) {
+    kt.load(k + kv_off, lo * BT, p.T, tid);
+    vt.load(v + kv_off, lo * BT, p.T, tid);
+  }
   for (int jt = lo; jt <= hi; ++jt) {
     const int k0 = jt * BT;
     __syncthreads();  // previous tile's planes consumed
-    kt.store(kh, kl, tid);
-    vt.store(vh, vl, tid);
-    if (jt < hi) {
-      kt.load(k + kv_off, k0 + BT, p.T, tid);
-      vt.load(v + kv_off, k0 + BT, p.T, tid);
+    if constexpr (PF) {
+      kt.store(kh, kl, tid);
+      vt.store(vh, vl, tid);
+      if (jt < hi) {
+        kt.load(k + kv_off, k0 + BT, p.T, tid);
+        vt.load(v + kv_off, k0 + BT, p.T, tid);
+      }
+    } else {
+      TileLoad<T, D>::copy(k + kv_off, k0, p.T, kh, kl, tid);
+      TileLoad<T, D>::copy(v + kv_off, k0, p.T, vh, vl, tid);
     }
     __syncthreads();
-    {  // phase 1: s = q k^T, dp = do v^T; 16 q rows x 32 keys per warp
-      float s[4][4], dp[4][4];
-      zero<4>(s);
-      zero<4>(dp);
-      mma_tile<4, D, S, S, false>(s, qh, ql, LDD, 16 * wm, kh, kl, LDD,
-                                  32 * wn, lane);
-      mma_tile<4, D, true, S, false>(dp, gh, gl, LDD, 16 * wm, vh, vl, LDD,
-                                     32 * wn, lane);
+    {  // phase 1: s = q k^T, dp = do v^T; 16 q rows x 64 / CG keys a warp
+      float s[NT1][4], dp[NT1][4];
+      zero<NT1>(s);
+      zero<NT1>(dp);
+      mma_tile<NT1, D, S, S, false>(s, qh, ql, LDD, 16 * wm, kh, kl, LDD,
+                                    (BT / CG) * wn, lane);
+      mma_tile<NT1, D, true, S, false>(dp, gh, gl, LDD, 16 * wm, vh, vl, LDD,
+                                       (BT / CG) * wn, lane);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NT1; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int r = 16 * wm + g + 8 * i, c = 32 * wn + 8 * j + 2 * cq;
+          const int r = 16 * wm + g + 8 * i,
+                    c = (BT / CG) * wn + 8 * j + 2 * cq;
           float pr, ds[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
@@ -358,15 +430,15 @@ __global__ void __launch_bounds__(NTH, 1)
         }
     }
     __syncthreads();
-    // phase 2: dq += ds k; 16 q rows x D / 2 columns per warp
+    // phase 2: dq += ds k; 16 q rows x D / CG columns a warp
     mma_tile<NT2, BT, true, S, true>(acc, dsh, dsl, LDS_, 16 * wm, kh, kl,
-                                     LDD, (D / 2) * wn, lane);
+                                     LDD, DC * wn, lane);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = q0 + 16 * wm + g + 8 * i;
     if (qi >= p.T) continue;
-    float* row = dq + ((size_t)bh * p.T + qi) * D + (D / 2) * wn;
+    float* row = dq + ((size_t)bh * p.T + qi) * D + DC * wn;
 #pragma unroll
     for (int j = 0; j < NT2; ++j)
       *reinterpret_cast<float2*>(row + 8 * j + 2 * cq) = make_float2(
@@ -377,7 +449,9 @@ __global__ void __launch_bounds__(NTH, 1)
 // --------------------------------------------------------------- K8 dkv
 // grid B * Hkv * ceil(T / 64) (the kv tiles seen by most q tiles first),
 // block 256.  Walks the G query heads of its group and their open q tiles
-// in order: dk = ds^T q * scale, dv = p^T do.
+// of BQ rows in order: dk = ds^T q * scale, dv = p^T do.  Warp w: keys 16
+// (w % 4); queries BQ / 2 (w / 4) in phase 1, columns D / 2 (w / 4) in
+// phase 2.
 template <typename T, int D>
 __global__ void __launch_bounds__(NTH, 1)
     flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
@@ -385,70 +459,77 @@ __global__ void __launch_bounds__(NTH, 1)
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dk, float* __restrict__ dv, int batch,
               Params p) {
-  constexpr bool S = std::is_same<T, float>::value;
-  constexpr int LDD = Ld<D>::LDD, NT2 = D / 16;  // phase-2 n-tiles
+  constexpr bool S = std::is_same<T, float>::value, PF = !wide(D);
+  constexpr int BQ = bq_of<T, D>(), LDP = BQ + 8;  // p / ds plane rows
+  constexpr int LDD = Ld<D>::LDD, NT1 = BQ / 16, NT2 = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Carve cv{smem_raw};
   __nv_bfloat16 *kh = cv.take(BT * LDD), *kl = cv.take(BT * LDD, S);
   __nv_bfloat16 *vh = cv.take(BT * LDD), *vl = cv.take(BT * LDD, S);
-  __nv_bfloat16 *qh = cv.take(BT * LDD), *ql = cv.take(BT * LDD, S);
-  __nv_bfloat16 *gh = cv.take(BT * LDD), *gl = cv.take(BT * LDD);
-  __nv_bfloat16 *ph = cv.take(BT * LDS_), *pl = cv.take(BT * LDS_);
-  __nv_bfloat16 *dsh = cv.take(BT * LDS_), *dsl = cv.take(BT * LDS_);
+  __nv_bfloat16 *qh = cv.take(BQ * LDD), *ql = cv.take(BQ * LDD, S);
+  __nv_bfloat16 *gh = cv.take(BQ * LDD), *gl = cv.take(BQ * LDD);
+  __nv_bfloat16 *ph = cv.take(BT * LDP), *pl = cv.take(BT * LDP);
+  __nv_bfloat16 *dsh = cv.take(BT * LDP), *dsl = cv.take(BT * LDP);
   float* s_lse = reinterpret_cast<float*>(cv.at);
-  float* s_dl = s_lse + BT;
+  float* s_dl = s_lse + BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, cq = lane & 3;
   const int nbk = batch * p.Hkv;
   const int bk = blockIdx.x % nbk, k0 = (blockIdx.x / nbk) * BT;
   const int b = bk / p.Hkv, hk = bk % p.Hkv, G = p.H / p.Hkv;
   const size_t kv_off = (size_t)bk * p.T * D;
-  {
-    TileLoad<T, D> kt, vt;
-    kt.load(k + kv_off, k0, p.T, tid);
-    vt.load(v + kv_off, k0, p.T, tid);
-    kt.store(kh, kl, tid);
-    vt.store(vh, vl, tid);
-  }
+  TileLoad<T, D>::copy(k + kv_off, k0, p.T, kh, kl, tid);
+  TileLoad<T, D>::copy(v + kv_off, k0, p.T, vh, vl, tid);
   float dka[NT2][4], dva[NT2][4];
   zero<NT2>(dka);
   zero<NT2>(dva);
   int lo, hi;
-  q_tiles(k0, BT, BT, p, lo, hi);
+  q_tiles(k0, BQ, BT, p, lo, hi);
   const int per = hi - lo + 1, n_it = G * per;
-  // iteration i: query head hk * G + i / per, q tile lo + i % per; its
-  // q / do tiles and lse (threads 0-63) or delta (64-127) rows are loaded
-  // one iteration ahead
-  TileLoad<T, D> qt;
-  TileLoad<float, D> gt;
+  // iteration i: query head hk * G + i / per, q tile lo + i % per; with PF
+  // its q / do tiles and lse (threads 0 .. BQ - 1) or delta (BQ .. 2 BQ -
+  // 1) rows are loaded one iteration ahead
+  TileLoad<T, D, NTH, BQ> qt;
+  TileLoad<float, D, NTH, BQ> gt;
   float rows = 0.f;
-  if (n_it > 0)
-    fetch_q<T, D>(qt, gt, rows, q, dout, lse, delta,
-                  (size_t)b * p.H + hk * G, lo * BT, p, tid);
+  if (PF && n_it > 0)
+    fetch_q<T, D, BQ>(qt, gt, rows, q, dout, lse, delta,
+                      (size_t)b * p.H + hk * G, lo * BQ, p, tid);
   for (int it = 0; it < n_it; ++it) {
-    const int q0 = (lo + it % per) * BT;
+    const int q0 = (lo + it % per) * BQ;
     __syncthreads();  // previous tile's planes consumed
-    qt.store(qh, ql, tid);
-    gt.store(gh, gl, tid);
-    if (tid < 2 * BT) s_lse[tid] = rows;  // s_dl follows s_lse
-    if (it + 1 < n_it)
-      fetch_q<T, D>(qt, gt, rows, q, dout, lse, delta,
-                    (size_t)b * p.H + hk * G + (it + 1) / per,
-                    (lo + (it + 1) % per) * BT, p, tid);
+    if constexpr (PF) {
+      qt.store(qh, ql, tid);
+      gt.store(gh, gl, tid);
+      if (tid < 2 * BQ) s_lse[tid] = rows;  // s_dl follows s_lse
+      if (it + 1 < n_it)
+        fetch_q<T, D, BQ>(qt, gt, rows, q, dout, lse, delta,
+                          (size_t)b * p.H + hk * G + (it + 1) / per,
+                          (lo + (it + 1) % per) * BQ, p, tid);
+    } else {
+      const size_t bh = (size_t)b * p.H + hk * G + it / per;
+      TileLoad<T, D, NTH, BQ>::copy(q + bh * p.T * D, q0, p.T, qh, ql, tid);
+      TileLoad<float, D, NTH, BQ>::copy(dout + bh * p.T * D, q0, p.T, gh, gl,
+                                        tid);
+      const int qi = q0 + (tid & (BQ - 1));
+      if (tid < 2 * BQ)
+        s_lse[tid] = qi < p.T ? (tid < BQ ? lse : delta)[bh * p.T + qi] : 0.f;
+    }
     __syncthreads();
-    {  // phase 1: s^T = k q^T, dp^T = v do^T; 16 keys x 32 queries a warp
-      float s[4][4], dp[4][4];
-      zero<4>(s);
-      zero<4>(dp);
-      mma_tile<4, D, S, S, false>(s, kh, kl, LDD, 16 * wm, qh, ql, LDD,
-                                  32 * wn, lane);
-      mma_tile<4, D, S, true, false>(dp, vh, vl, LDD, 16 * wm, gh, gl, LDD,
-                                     32 * wn, lane);
+    {  // phase 1: s^T = k q^T, dp^T = v do^T; 16 keys x BQ / 2 queries a warp
+      float s[NT1][4], dp[NT1][4];
+      zero<NT1>(s);
+      zero<NT1>(dp);
+      mma_tile<NT1, D, S, S, false>(s, kh, kl, LDD, 16 * wm, qh, ql, LDD,
+                                    (BQ / 2) * wn, lane);
+      mma_tile<NT1, D, S, true, false>(dp, vh, vl, LDD, 16 * wm, gh, gl, LDD,
+                                       (BQ / 2) * wn, lane);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NT1; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int r = 16 * wm + g + 8 * i, c = 32 * wn + 8 * j + 2 * cq;
+          const int r = 16 * wm + g + 8 * i,
+                    c = (BQ / 2) * wn + 8 * j + 2 * cq;
           float pr[2], ds[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
@@ -457,18 +538,18 @@ __global__ void __launch_bounds__(NTH, 1)
                                k0 + r, p, pr[e]);
           uint32_t h2, l2;
           mt::split2(pr[0], pr[1], h2, l2);
-          *reinterpret_cast<uint32_t*>(ph + r * LDS_ + c) = h2;
-          *reinterpret_cast<uint32_t*>(pl + r * LDS_ + c) = l2;
+          *reinterpret_cast<uint32_t*>(ph + r * LDP + c) = h2;
+          *reinterpret_cast<uint32_t*>(pl + r * LDP + c) = l2;
           mt::split2(ds[0], ds[1], h2, l2);
-          *reinterpret_cast<uint32_t*>(dsh + r * LDS_ + c) = h2;
-          *reinterpret_cast<uint32_t*>(dsl + r * LDS_ + c) = l2;
+          *reinterpret_cast<uint32_t*>(dsh + r * LDP + c) = h2;
+          *reinterpret_cast<uint32_t*>(dsl + r * LDP + c) = l2;
         }
     }
     __syncthreads();
     // phase 2: dv += p^T do, dk += ds^T q; 16 keys x D / 2 columns a warp
-    mma_tile<NT2, BT, true, true, true>(dva, ph, pl, LDS_, 16 * wm, gh, gl,
+    mma_tile<NT2, BQ, true, true, true>(dva, ph, pl, LDP, 16 * wm, gh, gl,
                                         LDD, (D / 2) * wn, lane);
-    mma_tile<NT2, BT, true, S, true>(dka, dsh, dsl, LDS_, 16 * wm, qh, ql,
+    mma_tile<NT2, BQ, true, S, true>(dka, dsh, dsl, LDP, 16 * wm, qh, ql,
                                      LDD, (D / 2) * wn, lane);
   }
 #pragma unroll
@@ -500,6 +581,7 @@ __device__ __forceinline__ void issue_kv(const __nv_bfloat16* k,
                                          int t_len, __nv_bfloat16* kd,
                                          __nv_bfloat16* vd, int tid) {
   constexpr int CH = D / 8, LDD = Ld<D>::LDD;  // 16-byte pieces a row
+  static_assert(BT * CH % FTH == 0, "whole rounds of pieces");
 #pragma unroll
   for (int i = 0; i < BT * CH / FTH; ++i) {
     const int idx = tid + i * FTH, row = idx / CH, ch = idx % CH;
@@ -510,9 +592,11 @@ __device__ __forceinline__ void issue_kv(const __nv_bfloat16* k,
   }
 }
 
+// a wide head keeps q in planes 4 and (f32) 5
 template <typename T, int D>
 constexpr size_t fwd_smem() {
-  return (size_t)4 * BT * Ld<D>::LDD * 2;
+  constexpr int QP = !wide(D) ? 0 : std::is_same<T, float>::value ? 2 : 1;
+  return (size_t)(4 + QP) * BT * Ld<D>::LDD * 2;
 }
 
 template <typename T, int D>
@@ -520,15 +604,18 @@ __global__ void __launch_bounds__(FTH)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int batch, Params p) {
-  constexpr bool S = std::is_same<T, float>::value;
+  constexpr bool S = std::is_same<T, float>::value, QR = !wide(D);
   constexpr int LDD = Ld<D>::LDD, KS = D / 16, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // four planes: bf16, K and V of two stages (stage s: 2 s, 2 s + 1);
-  // f32, the hi and lo planes of K (0, 1) and of V (2, 3)
+  // f32, the hi and lo planes of K (0, 1) and of V (2, 3); then, for a
+  // wide head, q's hi (4) and lo (5) planes
   Carve cv{smem_raw};
-  __nv_bfloat16* pl[4];
+  __nv_bfloat16* pl[6];
 #pragma unroll
   for (int i = 0; i < 4; ++i) pl[i] = cv.take(BT * LDD);
+  pl[4] = cv.take(BT * LDD, !QR);
+  pl[5] = cv.take(BT * LDD, !QR && S);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, cq = lane & 3;
   const int nq = (p.T + BT - 1) / BT, nbh = batch * p.H;
@@ -539,20 +626,21 @@ __global__ void __launch_bounds__(FTH)
   const T* vb = v + kv_off;
 
   // this warp's q rows as A fragments (hi, and lo for f32 inputs), staged
-  // through planes 0 and 1
-  uint32_t qa[KS][4], ql[S ? KS : 1][4];
-  {
-    TileLoad<T, D, FTH> qt;
-    qt.load(q + (size_t)bh * p.T * D, q0, p.T, tid);
-    qt.store(pl[0], pl[1], tid);
-  }
-  __syncthreads();
+  // through planes 0 and 1; a wide head's stay in planes 4 and 5 (read
+  // after the kv loop's first barrier)
+  uint32_t qa[QR ? KS : 1][4], ql[S && QR ? KS : 1][4];
+  TileLoad<T, D, FTH>::copy(q + (size_t)bh * p.T * D, q0, p.T,
+                            pl[QR ? 0 : 4], pl[QR ? 1 : 5], tid);
+  if constexpr (QR) {
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    mt::load_a(qa[kk], pl[0], LDD, 16 * warp, 16 * kk, lane);
-    if constexpr (S) mt::load_a(ql[kk], pl[1], LDD, 16 * warp, 16 * kk, lane);
+    for (int kk = 0; kk < KS; ++kk) {
+      mt::load_a(qa[kk], pl[0], LDD, 16 * warp, 16 * kk, lane);
+      if constexpr (S)
+        mt::load_a(ql[kk], pl[1], LDD, 16 * warp, 16 * kk, lane);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // rows g and g + 8 of the warp's 16: running max, sum and output
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -572,16 +660,8 @@ __global__ void __launch_bounds__(FTH)
       // f32 inputs (off the training path): split into the hi / lo planes
       // through registers, one tensor at a time
       __syncthreads();  // previous tile's planes read
-      {
-        TileLoad<T, D, FTH> t;
-        t.load(kb, k0, p.T, tid);
-        t.store(pl[0], pl[1], tid);
-      }
-      {
-        TileLoad<T, D, FTH> t;
-        t.load(vb, k0, p.T, tid);
-        t.store(pl[2], pl[3], tid);
-      }
+      TileLoad<T, D, FTH>::copy(kb, k0, p.T, pl[0], pl[1], tid);
+      TileLoad<T, D, FTH>::copy(vb, k0, p.T, pl[2], pl[3], tid);
       __syncthreads();
       kh = pl[0];
       kl = pl[1];
@@ -603,7 +683,17 @@ __global__ void __launch_bounds__(FTH)
     float s[8][4];
     zero<8>(s);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t fh[4], fl[4];
+      const uint32_t* ah = fh;
+      const uint32_t* al = fl;
+      if constexpr (QR) {
+        ah = qa[kk];
+        al = ql[S ? kk : 0];
+      } else {
+        mt::load_a(fh, pl[4], LDD, 16 * warp, 16 * kk, lane);
+        if constexpr (S) mt::load_a(fl, pl[5], LDD, 16 * warp, 16 * kk, lane);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t yh[4], yl[4];
@@ -611,13 +701,14 @@ __global__ void __launch_bounds__(FTH)
         if constexpr (S) mt::load_b_nk(yl, kl, LDD, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          mt::mma(s[2 * np + j], qa[kk], yh + 2 * j);
+          mt::mma(s[2 * np + j], ah, yh + 2 * j);
           if constexpr (S) {
-            mt::mma(s[2 * np + j], qa[kk], yl + 2 * j);
-            mt::mma(s[2 * np + j], ql[kk], yh + 2 * j);
+            mt::mma(s[2 * np + j], ah, yl + 2 * j);
+            mt::mma(s[2 * np + j], al, yh + 2 * j);
           }
         }
       }
+    }
 
     // scale, cap and mask; the online softmax of rows g (i = 0), g + 8
     const bool open = k0 + BT <= p.T &&
@@ -724,7 +815,7 @@ int dq(const void* q, const void* k, const void* v, const float* dout,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = batch * p.H * ((p.T + BT - 1) / BT);
+  const int blocks = batch * p.H * ((p.T + bq_of<T, D>() - 1) / bq_of<T, D>());
   kern<<<blocks, NTH, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), dout, lse, delta, dqo, batch, p);
@@ -764,16 +855,22 @@ bool make_params(int h, int hkv, int t, int causal, int window, float scale,
 
 }  // namespace
 
-// kind: 0 = bf16 q / k / v, 1 = f32.  d in {32, 64, 128}.  window < 0 means
+// kind: 0 = bf16 q / k / v, 1 = f32.  d in {32, 64, 80, 96, 128, 256}.  window < 0 means
 // no window.  o, dq [B, H, T, D]; lse, delta [B, H, T]; dk, dv [B, Hkv, T,
 // D]; all f32 and contiguous.  Each returns the cudaError_t of its launch.
-#define FA_DISPATCH(CALL)                                \
+#define FA_DISPATCH(CALL)                                  \
   if (kind == 0 && d == 32) return CALL(__nv_bfloat16, 32);   \
   if (kind == 0 && d == 64) return CALL(__nv_bfloat16, 64);   \
+  if (kind == 0 && d == 80) return CALL(__nv_bfloat16, 80);   \
+  if (kind == 0 && d == 96) return CALL(__nv_bfloat16, 96);   \
   if (kind == 0 && d == 128) return CALL(__nv_bfloat16, 128); \
+  if (kind == 0 && d == 256) return CALL(__nv_bfloat16, 256); \
   if (kind == 1 && d == 32) return CALL(float, 32);           \
   if (kind == 1 && d == 64) return CALL(float, 64);           \
+  if (kind == 1 && d == 80) return CALL(float, 80);           \
+  if (kind == 1 && d == 96) return CALL(float, 96);           \
   if (kind == 1 && d == 128) return CALL(float, 128);         \
+  if (kind == 1 && d == 256) return CALL(float, 256);         \
   return (int)cudaErrorInvalidValue
 
 extern "C" int flash_attention_fwd_launch(

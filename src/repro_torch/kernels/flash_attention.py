@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 _KINDS = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
 def _opts(q, window, softcap, scale):

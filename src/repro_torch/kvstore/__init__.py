@@ -1,6 +1,7 @@
 """Paged KV cache of the port: page pool, allocator and paged attention
 (decode and chunked prefill)."""
-from repro_torch.kvstore.alloc import OutOfPages, PageAllocator
+from repro_torch.kvstore.alloc import (OutOfPages, PageAllocator,
+                                      reclaimable_prefix)
 from repro_torch.kvstore.paged_attention import (paged_attention,
                                                  paged_attention_chunk)
 from repro_torch.kvstore.pool import (GARBAGE_PAGE, NO_PAGE, PagedKV,
@@ -11,4 +12,4 @@ from repro_torch.kvstore.pool import (GARBAGE_PAGE, NO_PAGE, PagedKV,
 __all__ = ["GARBAGE_PAGE", "NO_PAGE", "OutOfPages", "PageAllocator",
            "PagedKV", "attention_mask", "chunk_attention_mask", "init_pool",
            "init_table", "paged_attention", "paged_attention_chunk",
-           "update", "update_chunk"]
+           "reclaimable_prefix", "update", "update_chunk"]

@@ -56,3 +56,14 @@ class PageAllocator:
             if pid in self._used:
                 self._used.remove(pid)
                 self._free.append(pid)
+
+
+def reclaimable_prefix(cur_pos: int, window: int, page_size: int) -> int:
+    """How many leading table entries of a sequence at ``cur_pos`` lie
+    wholly behind a ``window``-wide SWA mask (the mask keeps pos > cur_pos
+    - window, so a page is dead once its last slot <= cur_pos - window).
+    Safe to free: later steps only move cur_pos forward."""
+    if window <= 0:
+        return 0
+    dead_below = cur_pos - window + 1     # positions below are masked out
+    return max(0, dead_below // page_size)

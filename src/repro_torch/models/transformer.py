@@ -1,6 +1,7 @@
-"""Blocks of the dense (rms-norm) and rwkv6 families and the layer stack,
-for training / prefill and for decode (paged for dense, the recurrent
-state for rwkv6).
+"""Blocks of the dense (rms-norm, with or without gemma2's post-norms),
+moe and rwkv6 families and the layer stack, for training / prefill and
+for decode (paged for the attention families, the recurrent state for
+rwkv6).
 
 Params and decode state are stacked over layers ([L, ...]); the JAX
 package's scan over layers is a Python loop over layer views (indexing,
@@ -19,6 +20,7 @@ from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (COMPUTE_DTYPE, mlp, mlp_init,
                                        rms_norm, rms_norm_init)
@@ -27,10 +29,9 @@ REMAT = ("none", "dots", "full")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "rwkv6") or cfg.norm != "rms" or \
-            cfg.post_norms:
+    if cfg.family not in ("dense", "moe", "rwkv6") or cfg.norm != "rms":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and rwkv6 rms-norm "
+            f"{cfg.name}: the port runs the dense, moe and rwkv6 rms-norm "
             "families so far; the others land with a later slice")
 
 
@@ -44,11 +45,18 @@ def layer_init(cfg: ArchConfig, gen: torch.Generator, lead=()) -> Dict:
                 "tm": ssm.rwkv6_time_mix_init(gen, d, cfg.rwkv_head_dim,
                                               lead=lead),
                 "cm": ssm.rwkv6_channel_mix_init(gen, d, f, lead=lead)}
-    return {"ln1": rms_norm_init(d, lead, gen.device),
-            "ln2": rms_norm_init(d, lead, gen.device),
-            "attn": attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv,
-                                   cfg.head_dim, cfg.qkv_bias, lead=lead),
-            "mlp": mlp_init(gen, d, f, cfg.gated_mlp, lead=lead)}
+    p = {"ln1": rms_norm_init(d, lead, gen.device),
+         "ln2": rms_norm_init(d, lead, gen.device),
+         "attn": attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv,
+                                cfg.head_dim, cfg.qkv_bias, lead=lead)}
+    if cfg.post_norms:
+        p["ln1p"] = rms_norm_init(d, lead, gen.device)
+        p["ln2p"] = rms_norm_init(d, lead, gen.device)
+    if cfg.moe:
+        p["moe"] = moe_mod.moe_init(gen, d, f, cfg.moe.n_experts, lead=lead)
+    else:
+        p["mlp"] = mlp_init(gen, d, f, cfg.gated_mlp, lead=lead)
+    return p
 
 
 def stack_init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
@@ -104,6 +112,28 @@ def _attn_kwargs(cfg: ArchConfig):
                 scale=cfg.attn_scale)
 
 
+def ffn(cfg: ArchConfig, p: Dict, x, h):
+    """The second half of an attention layer, from the residual ``x`` and
+    the attention output ``h``: post-norm of h (gemma2), residual add, the
+    MLP or MoE over the normed sum, its post-norm, residual add ->
+    (x, aux): the MoE's load-balancing loss, None for an MLP (so a decode
+    step makes no scalar it would throw away)."""
+    if cfg.post_norms:
+        h = rms_norm(h, p["ln1p"])
+    x = x + h
+    aux = None
+    if cfg.moe:
+        h, aux = moe_mod.moe_apply(
+            p["moe"], rms_norm(x, p["ln2"]), n_experts=cfg.moe.n_experts,
+            top_k=cfg.moe.top_k, group_size=cfg.moe.group_size,
+            capacity_factor=cfg.moe.capacity_factor)
+    else:
+        h = mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
+    if cfg.post_norms:
+        h = rms_norm(h, p["ln2p"])
+    return x + h, aux
+
+
 def unstack(tree, n: int):
     """The ``n`` layers of a stacked raw-param tree as a list of trees of
     views; under autograd each leaf's gradient comes back as one stacked
@@ -117,10 +147,9 @@ def unstack(tree, n: int):
 def block_forward(cfg: ArchConfig, p: Dict, x, positions, window: int,
                   attn_impl: str = "einsum"):
     """One layer, training / prefill, x [B, T, D] bf16 -> (x, aux); aux is
-    0 for the dense and rwkv6 families.  An rwkv6 layer starts from a zero
-    token shift and a zero WKV state."""
+    the MoE's load-balancing loss, None elsewhere.  An rwkv6 layer starts
+    from a zero token shift and a zero WKV state."""
     _check_family(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "rwkv6":
         zeros = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
                             device=x.device)
@@ -128,13 +157,11 @@ def block_forward(cfg: ArchConfig, p: Dict, x, positions, window: int,
                                   d_head=cfg.rwkv_head_dim)
         x = x + h
         h, _ = ssm.rwkv6_channel_mix(p["cm"], rms_norm(x, p["ln2"]), zeros)
-        return x + h, aux
+        return x + h, None
     h = attn.attn_apply(p["attn"], rms_norm(x, p["ln1"]), positions,
                         window=window, causal=cfg.causal, impl=attn_impl,
                         **_attn_kwargs(cfg))
-    x = x + h
-    h = mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
-    return x + h, aux
+    return ffn(cfg, p, x, h)
 
 
 # The reference's "dots" policy (``dots_with_no_batch_dims_saveable``):
@@ -168,7 +195,8 @@ def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
                 create_selective_checkpoint_contexts, _dots_policy)}
             x, a = checkpoint(block_forward, cfg, p, x, positions, window,
                               attn_impl, use_reentrant=False, **ctx)
-        aux = aux + a
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
@@ -190,9 +218,8 @@ def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
     pool, h = attn.attn_decode_paged(p["attn"], st["kv"], page_table,
                                      rms_norm(x, p["ln1"]), cur_pos,
                                      window=window, **_attn_kwargs(cfg))
-    x = x + h
-    h = mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
-    return {"kv": pool}, x + h
+    x, _ = ffn(cfg, p, x, h)
+    return {"kv": pool}, x
 
 
 def stack_decode(cfg: ArchConfig, stacked: Dict, states: Dict, x, cur_pos,

@@ -19,9 +19,11 @@ written (one scatter, ``kvstore.update_chunk``) before the chunk attends
 page-table index is the absolute position, so each query's mask at its
 own position sees in-chunk keys exactly like history.
 
-Scope: the paged cache and the dense rms-norm family, as the port's
-decode step (``transformer._check_family``); families with per-token
-recurrent state would scan the chunk token by token anyway.
+Scope: the paged cache and the dense and moe rms-norm families, as the
+port's decode step (``transformer._check_family``); families with
+per-token recurrent state would scan the chunk token by token anyway.  A
+MoE layer routes the whole [B, C] block as one token group, padding
+positions included, as the JAX package's step does.
 """
 from __future__ import annotations
 
@@ -34,8 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (COMPUTE_DTYPE, _bf16_matmul, dense,
-                                       embed, mlp, rms_norm, softcap,
-                                       unembed)
+                                       embed, rms_norm, softcap, unembed)
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
@@ -59,8 +60,7 @@ def _block_prefill(cfg: ArchConfig, p: Dict, st: Dict, x, positions,
     o = kvs.paged_attention_chunk(q, pool, table, positions, window,
                                   scale=scale, cap=cfg.attn_softcap)
     h = dense(attn._merge_heads(o.to(COMPUTE_DTYPE)), p["attn"]["wo"])
-    x = x + h
-    return x + mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
+    return tfm.ffn(cfg, p, x, h)[0]
 
 
 def _stack_prefill(cfg: ArchConfig, stacked: Dict, states: Dict, x,
