@@ -55,7 +55,17 @@ Phases, each of which exits non-zero when it fails:
    0.25)`` then four requests served at chunk 1 and at chunk 8 (tokens
    equal up to near-tie flips; the logits' drift logged, and which ops
    give a row other bits among 4 rows than among 32, K3 against K2
-   required to give none), with every launch counted;
+   required to give none), with every launch counted; then timed traffic
+   on the same engine (``run_workload``): the heterogeneous preset (10
+   requests, fifo, chunk 8) and shared-prefix (8 requests) with sjf and
+   the prefix cache, then fifo without it (tokens equal up to near-tie
+   flips), exact launches, no leaked page, every record's scheduling
+   clock and the stats equal to a reduced llama3-8b's on the CPU; an
+   attached prefix page equal bit for bit to the page its request writes
+   alone; seeded sampling repeated; the tick-clock trace equal to the CPU
+   run's; and ``python -m repro_torch.launch.serve`` (qwen1.5-0.5b, full
+   size, aida, shared-prefix, sjf, prefix cache) exiting 0 with every
+   request served, none leaked and the card in its provenance;
 10. fresh int8 and codebook4 engines serve the same requests at chunk 8
     through K4 / K5 (one launch a call), then a short profiled serve each
     (device busy, kernels a step, K4 / K5 as the "fc" family); then
@@ -1336,10 +1346,10 @@ def _serve(dev, eng, label, fc_kernel, chunk):
     sess.emitted = {}
     emit = sess._emit
 
-    def keep(i, logits_i):             # the row each token was drawn from
+    def keep(i, logits_i, now):        # the row each token was drawn from
         sess.emitted.setdefault(sess.slot_entry[i].req.rid, []).append(
             logits_i.copy())
-        emit(i, logits_i)
+        emit(i, logits_i, now)
     sess._emit = keep
     fns = _launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1489,8 +1499,8 @@ def serve_phase(dev, layers):
     flips.  K1 gives a column the same bits at every width, so what still
     parts the two serves' logits is logged: their drift, and which ops
     give a row other bits among 32 rows than among 4.  Returns the chunk-8
-    serve's launch counts and K1's launches by variant and column
-    count."""
+    serve's launch counts, K1's launches by variant and column count, and
+    the engine (the traffic phase serves on it)."""
     from repro_torch import CompressionSpec, Request
     cfg = _llama(layers)
     eng = _compressed_engine(dev, cfg, CompressionSpec(mode="aida",
@@ -1519,7 +1529,249 @@ def serve_phase(dev, layers):
     del sess1, sess8
     trace_serve(eng, 1)
     trace_serve(eng, 8)
-    return counts, by_rows
+    return counts, by_rows, eng
+
+
+# -------------------------------------------------------- serve traffic
+TRAFFIC_REQUESTS = {"heterogeneous": 10, "shared-prefix": 8}
+#: record fields set by the scheduling clock alone, equal on the card and
+#: on the CPU whatever the model's width: they follow lengths and arrivals
+SCHED_FIELDS = ("rid", "prompt_len", "max_new", "submit_step", "admit_step",
+                "first_token_step", "n_generated", "preemptions",
+                "prefix_pages", "state")
+SCHED_STATS = ("steps", "prefill_steps", "fills", "preemptions",
+               "page_allocs", "pages_peak", "prefix_hits",
+               "prefix_pages_reused")
+
+
+def _traffic_session(eng, scheduler, obs=None, seed=0):
+    return eng.session(batch_slots=4, max_len=256, page_size=16, seed=seed,
+                       scheduler=scheduler, obs=obs)
+
+
+def _run_counted(dev, eng, arrivals, scheduler, label, obs=None):
+    """``run_workload`` on the card with every launch count set to 0 just
+    before and read just after: every request completes, no page leaks
+    (the prefix cache's own pins aside), and the launches are exact — 7
+    K1 a layer and step (its gather variant on a decode step's 4 columns,
+    the wide one on a chunked step's 32), one K3 a layer and chunked step,
+    one K2 a layer and decode step."""
+    import torch
+    sess = _traffic_session(eng, scheduler, obs)
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = sess.run_workload(arrivals)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    n_layers, n_fc = eng.cfg.n_layers, _fc_per_layer(eng)
+    pre = sess.stats["prefill_steps"]
+    dec = sess.stats["steps"] - pre
+    want = dict.fromkeys(fns, 0)
+    want.update({"acsr_spmv_gather": n_fc * n_layers * dec,
+                 "acsr_spmv_wide": n_fc * n_layers * pre,
+                 "paged_attention_decode": n_layers * dec,
+                 "paged_attention_chunk": n_layers * pre})
+    if counts != want:
+        raise AssertionError(f"{label}: launches {json.dumps(counts)}, "
+                             f"expected {json.dumps(want)}")
+    if len(res) != len(arrivals) or any(
+            r["state"] != "completed" for r in sess.records):
+        raise AssertionError(f"{label}: {len(res)}/{len(arrivals)} "
+                             "requests completed")
+    cached = sess.prefix.pages if sess.prefix is not None else 0
+    if sess.alloc.in_use != cached:
+        raise AssertionError(f"{label}: {sess.alloc.in_use - cached} pages "
+                             "leaked")
+    if sess.stats["nonfinite_logit_rows"]:
+        raise AssertionError(f"{label}: non-finite logits were emitted")
+    return res, sess, dt
+
+
+def _sched_equal(card, cpu, label):
+    """The scheduling-clock fields of every record and the stats counters
+    of a card run equal those of the reduced CPU run."""
+    view = [[{k: r[k] for k in SCHED_FIELDS} for r in s.records]
+            for s in (card, cpu)]
+    if view[0] != view[1]:
+        raise AssertionError(f"{label}: records differ from the CPU run's: "
+                             f"{json.dumps(view)}")
+    stats = [{k: s.stats[k] for k in SCHED_STATS} for s in (card, cpu)]
+    if stats[0] != stats[1]:
+        raise AssertionError(f"{label}: stats {json.dumps(stats[0])} vs the "
+                             f"CPU run's {json.dumps(stats[1])}")
+    return stats[0]
+
+
+def _attached_page_bytes(eng, arrivals):
+    """Serve request 0 alone, then request 1 alone with the prefix cache
+    on; the page request 1 attaches must equal, bit for bit, the page it
+    writes when served alone with the cache off.  Returns the first
+    (layer, k / v) where they part, or None."""
+    import torch
+    from repro_torch.sched import page_hashes
+    r0, r1 = arrivals[0][1], arrivals[1][1]
+    cached = _traffic_session(eng, {"chunk": 8, "prefix_cache": True})
+    cached.run_workload([(0, r0)])
+    cached.run_workload([(0, r1)])
+    if cached.stats["prefix_pages_reused"] != 1:
+        raise AssertionError("attached page: request 1 attached "
+                             f"{cached.stats['prefix_pages_reused']} pages")
+    shared = cached.prefix.peek(page_hashes(r1.prompt, 16)[0])
+    alone = _traffic_session(eng, {"chunk": 8})
+    written = []
+    release = alone._release_slot_pages
+
+    def snap(i):                          # the page it wrote, on release
+        if alone.host_table[i][0] >= 0:
+            written.append(int(alone.host_table[i][0]))
+        release(i)
+    alone._release_slot_pages = snap
+    alone.run_workload([(0, r1)])
+    kv_a, kv_b = cached.state["layers"]["kv"], alone.state["layers"]["kv"]
+    for layer in range(eng.cfg.n_layers):
+        for name in ("k_pages", "v_pages"):
+            a = getattr(kv_a, name)[layer, shared]
+            b = getattr(kv_b, name)[layer, written[0]]
+            if not torch.equal(a, b):
+                return layer, name, float((a.float() - b.float()).abs().max())
+    return None
+
+
+LAUNCH = ("--arch", "qwen1.5-0.5b", "--full-size", "--compress", "aida",
+          "--density", "0.25", "--workload", "shared-prefix",
+          "--prefix-cache", "--policy", "sjf", "--chunk", "8")
+
+
+def _launch_serve(out):
+    """``python -m repro_torch.launch.serve`` as a user runs it (qwen1.5-0.5b
+    at full size, aida 0.25, shared-prefix traffic, sjf, the prefix cache,
+    chunk 8, traced and reported into ``out``); its lines are logged and its
+    ``--json`` dump returned.  Raises unless it exits 0."""
+    import os
+    files = {k: str(out / f"{k}.json") for k in ("trace", "report", "json")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH,
+         "--trace", files["trace"], "--report", files["report"], "--json",
+         files["json"]],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"launcher: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(pathlib.Path(files["json"]).read_text())
+
+
+def traffic_phase(dev, eng):
+    """Timed traffic on the aida engine of phase 9 (llama3-8b, full width):
+    the heterogeneous workload (fifo), shared-prefix twice (sjf with the
+    prefix cache, then fifo without it, on the same arrivals), the bytes of
+    an attached page, seeded sampling, the tick-clock trace, each run's
+    scheduling clock against a reduced llama3-8b's on the CPU, and the
+    launcher as a subprocess (qwen1.5-0.5b, full size)."""
+    import tempfile
+
+    from repro_torch import Engine, Request, get, reduced
+    from repro_torch.obs import Tracer, analyze
+    from repro_torch.sched import WorkloadSpec, generate, summarize
+    cfg = eng.cfg
+    # the CPU twin: the same slots, max_len, page size, pool and chunk at a
+    # reduced width (the scheduling clock follows lengths and arrivals)
+    cpu = Engine(reduced(get("llama3-8b"), vocab=cfg.vocab), device="cpu")
+    fifo8 = {"chunk": 8, "policy": "fifo"}
+    # the CPU run takes the very arrivals list: generate() draws token
+    # values between lengths, so a spec at another vocabulary need not
+    # give the same lengths
+    het = generate(WorkloadSpec.preset(
+        "heterogeneous", n_requests=TRAFFIC_REQUESTS["heterogeneous"],
+        vocab=cfg.vocab, seed=0))
+    _, sess, dt = _run_counted(dev, eng, het, fifo8, "traffic heterogeneous")
+    ref = _traffic_session(cpu, fifo8)
+    ref.run_workload(het)
+    stats = _sched_equal(sess, ref, "traffic heterogeneous")
+    m = summarize(sess.records, dt, sess.stats["steps"])
+    log(f"traffic heterogeneous ({len(het)} requests, fifo, chunk 8): "
+        f"{m['tokens']} tokens in {dt:.2f} s, {m['tok_per_s']} tok/s, TTFT "
+        f"p50 {m['ttft_s']['p50'] * 1e3:.1f} / p99 "
+        f"{m['ttft_s']['p99'] * 1e3:.1f} ms, {m['ttft_sched']['p50']} / "
+        f"{m['ttft_sched']['p99']} steps; TPOT p50 "
+        f"{m['tpot_s']['p50'] * 1e3:.1f} ms; {stats['steps']} steps "
+        f"({stats['prefill_steps']} chunked), "
+        f"{stats['preemptions']} preemptions; records and stats = the CPU "
+        "run's")
+    sp = generate(WorkloadSpec.preset(
+        "shared-prefix", n_requests=TRAFFIC_REQUESTS["shared-prefix"],
+        vocab=cfg.vocab, seed=0))
+    sjf = {"chunk": 8, "policy": "sjf", "prefix_cache": True}
+    got, cached, dt = _run_counted(dev, eng, sp, sjf, "traffic shared-prefix")
+    ref = _traffic_session(cpu, sjf)
+    ref.run_workload(sp)
+    stats = _sched_equal(cached, ref, "traffic shared-prefix")
+    if not (stats["prefix_pages_reused"] > 0 and stats["prefix_hits"] > 0):
+        raise AssertionError("traffic shared-prefix: the cache was never hit")
+    cached.prefix.clear(cached.alloc)
+    if cached.alloc.in_use:
+        raise AssertionError("traffic shared-prefix: pages held after the "
+                             "cache was cleared")
+    base, plain, _ = _run_counted(dev, eng, sp, fifo8,
+                                  "traffic shared-prefix, no cache")
+    flips = _near_tie_flips(base, plain.margins, got,
+                            "shared-prefix with the cache vs without")
+    m = summarize(cached.records, dt, cached.stats["steps"])
+    log(f"traffic shared-prefix ({len(sp)} requests, sjf + prefix cache): "
+        f"{stats['prefix_hits']} hits, {stats['prefix_pages_reused']} pages "
+        f"reused (= the CPU run's), {stats['steps']} steps against "
+        f"{plain.stats['steps']} without the cache, {m['tok_per_s']} tok/s; "
+        "tokens vs no cache: "
+        f"{'identical' if not flips else f'{flips} near-tie flips'}")
+    parted = _attached_page_bytes(eng, sp)
+    if parted is not None:
+        raise AssertionError(
+            "attached page: differs from the page written alone at layer "
+            f"{parted[0]} {parted[1]} (max abs {parted[2]:.3g})")
+    log("traffic: the attached prefix page equals the page request 1 "
+        "writes alone, bit for bit, in all layers")
+    draws = []
+    for _ in range(2):
+        s = _traffic_session(eng, {"chunk": 8}, seed=0)
+        s.submit(Request(prompt=sp[0][1].prompt, max_new=16,
+                         temperature=0.8, rid=0))
+        draws.append(s.run()[0].tokens)
+    if draws[0] != draws[1] or not all(0 <= t < cfg.vocab
+                                       for t in draws[0]):
+        raise AssertionError(f"sampling: seeded draws {draws}")
+    log(f"traffic sampling (T 0.8, seed 0): {draws[0]} twice")
+    traces = []
+    for e, where in ((eng, "card"), (cpu, "CPU")):
+        tr = Tracer()
+        s = _traffic_session(e, fifo8, obs=tr)
+        s.run_workload(het)
+        if not analyze(tr).segments_consistent():
+            raise AssertionError(f"trace ({where}): segments inconsistent")
+        traces.append(tr.to_chrome())
+    if traces[0] != traces[1]:
+        raise AssertionError("trace: the card's tick-clock trace differs "
+                             "from the CPU run's")
+    log(f"traffic trace: {len(traces[0]['traceEvents'])} events, equal to "
+        "the CPU run's event for event; segments consistent")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="traffic_") as out:
+        dump = _launch_serve(pathlib.Path(out))
+    mm, prov = dump["metrics"], dump["provenance"]
+    if mm["completed"] != mm["requests"] or dump["pages"]["leaked"]:
+        raise AssertionError(f"launcher: {mm['completed']}/"
+                             f"{mm['requests']} requests, "
+                             f"{dump['pages']['leaked']} pages leaked")
+    if not prov.get("card") or "W" not in prov["card"]:
+        raise AssertionError(f"launcher: provenance names no card: {prov}")
+    log(f"launcher: exit 0 in {time.perf_counter() - t0:.1f} s, "
+        f"{mm['completed']}/{mm['requests']} requests, 0 leaked, card "
+        f"{prov['card']!r}")
 
 
 def fc_mode_serves(dev, layers):
@@ -2397,7 +2649,9 @@ def main(argv=None) -> int:
         _timed("K6", k6_phase, dev, flush)
     del flush
     layers = args.layers or 32
-    launches, by_rows = _timed("serve aida", serve_phase, dev, layers)
+    launches, by_rows, eng = _timed("serve aida", serve_phase, dev, layers)
+    _timed("serve traffic", traffic_phase, dev, eng)
+    del eng
     by_rows.update(_timed("serve int8 / codebook4", fc_mode_serves, dev,
                           layers))
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())

@@ -78,26 +78,34 @@ class Engine:
         return self
 
     def session(self, batch_slots: int = 4, max_len: int = 256,
-                kv_cache: Optional[str] = None, page_size: int = 16,
-                kv_pool_pages: Optional[int] = None,
-                kv_dtype: Optional[str] = None, scheduler=None) -> Session:
-        """A continuous-batching serving session on the engine's device."""
+                seed: int = 0, kv_cache: Optional[str] = None,
+                page_size: int = 16, kv_pool_pages: Optional[int] = None,
+                kv_dtype: Optional[str] = None, scheduler=None,
+                obs=None) -> Session:
+        """A continuous-batching serving session on the engine's device.
+        ``scheduler``: a `sched.SchedConfig` (or dict / policy name):
+        policy, chunk, prefix cache.  ``seed`` seeds the sampling draws of
+        requests with a temperature.  ``obs``: an `obs.Tracer` for the
+        tick-clock event stream (None: untraced)."""
         if self.cfg is None:
             raise ValueError("serving needs an ArchConfig")
         cls = RecurrentSession if self.cfg.family == "rwkv6" else Session
         return cls(self.cfg, self.params, batch_slots=batch_slots,
-                   max_len=max_len, device=self.device, kv_cache=kv_cache,
-                   page_size=page_size, kv_pool_pages=kv_pool_pages,
-                   kv_dtype=kv_dtype, scheduler=scheduler)
+                   max_len=max_len, device=self.device, seed=seed,
+                   kv_cache=kv_cache, page_size=page_size,
+                   kv_pool_pages=kv_pool_pages, kv_dtype=kv_dtype,
+                   scheduler=scheduler, obs=obs)
 
     def serve(self, requests: Sequence[Union[Request, List[int]]], *,
               batch_slots: int = 4, max_len: int = 256,
-              max_steps: int = 10_000, kv_cache: Optional[str] = None,
-              scheduler=None) -> List[Result]:
+              max_steps: int = 10_000, seed: int = 0,
+              kv_cache: Optional[str] = None, scheduler=None,
+              obs=None) -> List[Result]:
         """Serve a batch of requests to completion (continuous batching);
         results come back in rid order."""
         sess = self.session(batch_slots=batch_slots, max_len=max_len,
-                            kv_cache=kv_cache, scheduler=scheduler)
+                            seed=seed, kv_cache=kv_cache,
+                            scheduler=scheduler, obs=obs)
         for rid, req in enumerate(requests):
             if not isinstance(req, Request):
                 req = Request(prompt=list(req), rid=rid)

@@ -1,36 +1,55 @@
 """Serving session: continuous batching over a fixed-slot decode batch and
 a paged KV pool (attention families) or the per-slot recurrent state
-(rwkv6, which has nothing to page).
+(rwkv6, which has nothing to page), driven by timed traffic.
 
 Requests occupy slots; a finished slot is refilled from the scheduler's
-queue without stopping the batch.  The FIFO scheduler admits a request
-only when its worst-case page need fits the pool, and under page pressure
-the youngest slot is preempted back to the queue (recompute resume)
-instead of letting ``OutOfPages`` crash the batch.  With ``chunk`` > 1 a
-step that has prompt tokens pending runs the chunked-prefill step (up to
-``chunk`` prompt tokens per prefilling slot, one token per decoding slot);
-otherwise, and with chunk 1, prompts feed token by token through the
-decode step.  Pages are allocated host-side the step a sequence crosses a
-page boundary and freed the moment its request completes.  Where every
-layer is windowed (h2o-danube, mixtral), a page that has slid wholly
-behind the widest window is freed after each step (SWA reclamation), so a
-sequence holds O(window) pages.
+queue without stopping the batch.  The scheduler (`repro_torch.sched`)
+decides admission order (FIFO, or shortest-prompt-first with aging),
+admits a request only when its worst-case page need fits the pool, and
+under page pressure the youngest slot is preempted back to the queue
+(recompute resume) instead of letting ``OutOfPages`` crash the batch.
+With ``chunk`` > 1 a step that has prompt tokens pending runs the
+chunked-prefill step (up to ``chunk`` prompt tokens per prefilling slot,
+one token per decoding slot); otherwise, and with chunk 1, prompts feed
+token by token through the decode step.  Pages are allocated host-side
+the step a sequence crosses a page boundary and freed the moment its
+request completes.  Where every layer is windowed (h2o-danube, mixtral),
+a page that has slid wholly behind the widest window is freed after each
+step (SWA reclamation), so a sequence holds O(window) pages.
+
+Traffic: ``run_workload`` serves ``[(arrival_step, Request)]`` (see
+``sched.workload``), fast-forwarding idle gaps; every request leaves a
+lifecycle record in ``records`` (the JAX package's schema) that
+``sched.metrics.summarize`` folds into TTFT / TPOT / goodput.  With
+``prefix_cache`` full prompt pages are content-hashed and shared across
+requests (refcounted): a request whose prompt starts with a cached prefix
+attaches those page ids and prefills from the first page after them.
+``temperature > 0`` samples from ``softmax(logits / T)`` with a CPU
+``torch.Generator`` seeded by ``seed``, so the same logits rows give the
+same tokens on the card and on the CPU.  ``obs=`` takes an
+``obs.Tracer``: the tick-clock event stream of every seam, and wall
+phases around each step.
 
 The rwkv6 family serves through ``RecurrentSession`` with its per-slot
-state whatever ``kv_cache`` asks, as in the JAX package: no allocator and
-no page table, chunk 1 (its time mix is recurrent), and a slot's state
-zeroed when a request is admitted to it.  The full cache of attention
-families, mesh, disaggregated roles, fault
-injection, tracing and the prefix cache land with later slices.
+state whatever ``kv_cache`` asks, as in the JAX package: no allocator, no
+page table and no prefix cache, chunk 1 (its time mix is recurrent), and
+a slot's state zeroed when a request is admitted to it.  Not ported yet:
+the full cache of attention families, mesh serving, and the
+disaggregated and resilience layers.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import collections
+import contextlib
+import time
+import warnings
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import kvstore as kvs
+from repro_torch import obs as obs_mod
 from repro_torch import sched as schd
 from repro_torch.api.spec import Request, Result
 from repro_torch.configs.base import ArchConfig
@@ -38,6 +57,7 @@ from repro_torch.models import model as M
 
 KV_CACHE_DEFAULT = "auto"
 KV_DTYPE_DEFAULT = "bf16"
+ON_INCOMPLETE = ("raise", "warn", "ignore")
 
 
 def resolve_kv_cache(kv_cache: Optional[str], cfg: ArchConfig) -> str:
@@ -48,12 +68,24 @@ def resolve_kv_cache(kv_cache: Optional[str], cfg: ArchConfig) -> str:
     return kv
 
 
+def _unserved_record(req: Request) -> dict:
+    """Lifecycle record of a request that never reached submit() (terminal
+    state 'unserved'); Session.submit's records start from it."""
+    return {"rid": req.rid, "prompt_len": len(req.prompt),
+            "max_new": req.max_new, "submit_step": None,
+            "submit_time": None, "admit_step": None, "admit_time": None,
+            "first_token_step": None, "first_token_time": None,
+            "finish_time": None, "n_generated": 0, "preemptions": 0,
+            "prefix_pages": 0, "state": "unserved",
+            "failed_reason": None, "retries": 0}
+
+
 class Session:
     def __init__(self, cfg: ArchConfig, params, batch_slots: int = 4,
-                 max_len: int = 256, *, device,
+                 max_len: int = 256, *, device, seed: int = 0,
                  kv_cache: Optional[str] = None, page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
-                 kv_dtype: Optional[str] = None, scheduler=None):
+                 kv_dtype: Optional[str] = None, scheduler=None, obs=None):
         self.cfg, self.params = cfg, params
         self.device = torch.device(device)
         self.slots = batch_slots
@@ -65,26 +97,39 @@ class Session:
         # prompts feed token by token
         self.chunk = self.sched.cfg.chunk \
             if schd.supports_chunked_prefill(cfg) else 1
+        self.stats = {"steps": 0, "prefill_steps": 0, "fills": 0,
+                      "preemptions": 0, "chunk": self.chunk,
+                      "page_allocs": 0, "pages_in_use": 0, "pages_peak": 0,
+                      "pages_reclaimed_swa": 0, "prefix_hits": 0,
+                      "prefix_pages_reused": 0, "nonfinite_logit_rows": 0}
         self._init_state(resolve_kv_cache(kv_cache, cfg), kv_pool_pages)
         self.slot_pos = [0] * batch_slots
         self.slot_entry: List[Optional[schd.SchedEntry]] = \
             [None] * batch_slots
         self.slot_pending: List[List[int]] = [[] for _ in range(batch_slots)]
         self.slot_out: List[List[int]] = [[] for _ in range(batch_slots)]
+        # per slot, the next prompt page to offer the prefix cache
+        self.slot_cache_j: List[int] = [0] * batch_slots
         self.results: List[Result] = []
+        #: one lifecycle record per request (the JAX package's schema)
+        self.records: List[dict] = []
         #: per request, the top-2 logit margin of every emitted token
         self.margins: Dict[int, List[float]] = {}
-        self.stats = {"steps": 0, "prefill_steps": 0, "fills": 0,
-                      "preemptions": 0, "chunk": self.chunk,
-                      "page_allocs": 0, "pages_in_use": 0, "pages_peak": 0,
-                      "pages_reclaimed_swa": 0, "nonfinite_logit_rows": 0}
+        # sampling draws: a CPU generator, advanced only by sampled tokens
+        self.gen = torch.Generator().manual_seed(seed)
+        self.role = "engine"
+        self.tick = 0              # scheduling-opportunity clock
+        # observability: obs.NULL keeps every seam on the untraced path
+        # (hooks stay None, emits are no-ops)
+        self.tracer = obs if obs is not None else obs_mod.NULL
+        if self.tracer.enabled:
+            self._wire_obs()
 
     def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
         if kv_cache != "paged":
             raise NotImplementedError(
                 f"kv_cache={kv_cache!r}: the port serves attention families "
-                "from the paged cache; their full cache lands with a later "
-                "slice")
+                "from the paged cache; their full cache is not ported yet")
         self.state = M.init_decode_state(
             self.cfg, self.slots, self.max_len, kv_cache="paged",
             page_size=self.page_size, kv_pool_pages=kv_pool_pages,
@@ -99,32 +144,121 @@ class Session:
         wins = self.cfg.layer_windows()
         self._swa_window = max(wins) if wins and all(
             w > 0 for w in wins) else None
+        self.prefix = schd.PrefixCache() \
+            if self.sched.cfg.prefix_cache else None
+
+    def _wire_obs(self) -> None:
+        """Attach the tracer to the host-side seams; the hook reads
+        ``self.tick`` when it fires."""
+        hook = self.tracer.hook(self.role, lambda: self.tick)
+        if self.alloc is not None:
+            self.alloc.obs = hook
+        if self.prefix is not None:
+            self.prefix.obs = hook
+        self.sched.obs = hook
+
+    def _step_ctx(self, phase: str):
+        """Wall-clock phase accounting around a step and its logits copy
+        (tracing on only); wall times never enter the event stream."""
+        if not self.tracer.enabled:
+            return contextlib.nullcontext()
+        return self.tracer.wall.phase(phase)
 
     # ------------------------------------------------------------ public
     def submit(self, req: Request) -> None:
-        if req.temperature > 0:
-            raise NotImplementedError("sampling (temperature > 0) lands "
-                                      "with a later slice; decode is greedy")
-        self.sched.submit(req)
+        # submit runs between steps, after the last step's logits reached
+        # the host, so its clock reading is real time on the card too
+        entry = self.sched.submit(req, step=self.stats["steps"],
+                                  now=time.perf_counter())
+        if self.alloc is not None:
+            entry.hashes = schd.page_hashes(req.prompt, self.page_size)
+        rec = dict(_unserved_record(req), submit_step=entry.submit_step,
+                   submit_time=entry.submit_time, state="queued")
+        entry.record = rec
+        self.records.append(rec)
+        self.tracer.instant("req.submit", tick=self.tick, role=self.role,
+                            rid=req.rid, prompt_len=len(req.prompt),
+                            max_new=req.max_new)
 
-    def run(self, max_steps: int = 10_000) -> List[Result]:
-        """Drain the queue; returns all results in rid order.  Raises if
-        ``max_steps`` runs out or admission deadlocks with work left."""
+    def run(self, max_steps: int = 10_000,
+            on_incomplete: str = "raise") -> List[Result]:
+        """Drain the queue; returns all results in rid order.
+        ``on_incomplete``: what to do when ``max_steps`` runs out (or
+        admission deadlocks) with requests queued or in flight — "raise",
+        "warn" (partial results) or "ignore"."""
+        return self.run_workload([], max_steps=max_steps,
+                                 on_incomplete=on_incomplete)
+
+    def run_workload(self, arrivals: Sequence[Tuple[int, Request]],
+                     max_steps: int = 10_000,
+                     on_incomplete: str = "raise") -> List[Result]:
+        """Serve timed traffic: ``arrivals`` is [(arrival_step, Request)]
+        (see sched.workload); requests already submit()ed count as step-0
+        arrivals.  Idle gaps fast-forward the clock.  An ``OutOfPages``
+        escaping the loop dumps the flight recorder (when the tracer has
+        one) before it is raised again."""
+        if on_incomplete not in ON_INCOMPLETE:
+            raise ValueError(f"on_incomplete={on_incomplete!r}; choose one "
+                             f"of {ON_INCOMPLETE}")
+        try:
+            return self._run_loop(arrivals, max_steps, on_incomplete)
+        except kvs.OutOfPages as e:
+            self.tracer.crash(type(e).__name__, role=self.role,
+                              tick=self.tick, error=str(e))
+            raise
+
+    def _run_loop(self, arrivals: Sequence[Tuple[int, Request]],
+                  max_steps: int, on_incomplete: str) -> List[Result]:
+        pending: Deque[Tuple[int, Request]] = collections.deque(
+            sorted(arrivals, key=lambda a: a[0]))
+        # the arrival clock follows the model-call count but jumps over
+        # idle gaps; stats["steps"] counts executed model calls only
+        clock = self.stats["steps"]
         for _ in range(max_steps):
+            self.tick = clock
+            while pending and pending[0][0] <= clock:
+                self.submit(pending.popleft()[1])
             self._fill_slots()
             if all(e is None for e in self.slot_entry):
                 if len(self.sched):
-                    raise kvs.OutOfPages(
-                        "admission blocked: the page pool is too small "
-                        "for the head-of-line request's worst-case need")
+                    self._incomplete(on_incomplete, blocked=True,
+                                     pending=pending)
+                    break
+                if pending:        # idle until the next arrival
+                    clock = pending[0][0]
+                    continue
                 break
             self._advance()
+            clock += 1
         else:
-            if len(self.sched) or any(e is not None
-                                      for e in self.slot_entry):
-                raise RuntimeError(f"Session.run: max_steps={max_steps} "
-                                   "exhausted with requests unfinished")
+            self._incomplete(on_incomplete, blocked=False, pending=pending)
         return sorted(self.results, key=lambda r: r.rid)
+
+    def _incomplete(self, on_incomplete: str, blocked: bool,
+                    pending: Sequence[Tuple[int, Request]] = ()) -> None:
+        """Terminal records for everything that never finished (arrivals
+        still pending included), then raise, warn or pass."""
+        live = [e for e in self.slot_entry if e is not None]
+        live += list(self.sched.queue)
+        for e in live:
+            if e.record is not None and e.record.get("state") == "queued":
+                e.record["state"] = "unserved"
+        for _, req in pending:
+            self.records.append(_unserved_record(req))
+        unfinished = [e.req.rid for e in live]
+        unfinished += [req.rid for _, req in pending]  # never submitted
+        if not unfinished or on_incomplete == "ignore":
+            return
+        why = ("admission blocked (page pool too small for the "
+               "head-of-line request's worst-case need)" if blocked
+               else "max_steps exhausted")
+        msg = (f"Session.run stopped with {len(unfinished)} unfinished "
+               f"request(s) {sorted(unfinished)}: {why}; "
+               f"{len(self.results)} completed")
+        if on_incomplete == "warn":
+            warnings.warn(msg, RuntimeWarning, stacklevel=4)
+            return
+        raise kvs.OutOfPages(msg) if blocked else RuntimeError(msg)
 
     # --------------------------------------------------------- admission
     def _page_need(self, entry: schd.SchedEntry) -> int:
@@ -133,26 +267,89 @@ class Session:
             len(req.prompt) + len(entry.out), req.max_new - len(entry.out),
             self.max_len, self.page_size)
 
+    def _prefix_hit_pids(self, entry: schd.SchedEntry) -> List[int]:
+        """Page ids of the leading full prompt pages this entry could
+        attach from the prefix cache right now (a pure lookup, no refs)."""
+        if self.prefix is None:
+            return []
+        n = schd.prefix.usable_prefix_pages(len(entry.req.prompt),
+                                            self.page_size)
+        pids: List[int] = []
+        for j in range(min(n, self.host_table.shape[1])):
+            pid = self.prefix.peek(entry.hashes[j])
+            if pid is None:
+                break
+            pids.append(pid)
+        return pids
+
     def _fits(self, entry: schd.SchedEntry) -> bool:
-        return self._page_need(entry) <= self.alloc.available
+        hits = self._prefix_hit_pids(entry)
+        avail = self.alloc.available
+        if self.prefix is not None:
+            # pages only the cache still holds can be released under
+            # pressure — but not the ones this entry would attach itself
+            avail += self.prefix.releasable(self.alloc, exclude=hits)
+        return self._page_need(entry) - len(hits) <= avail
 
     def _fill_slots(self):
         for i in range(self.slots):
             if self.slot_entry[i] is not None:
                 continue
-            entry = self.sched.next_entry(self._fits)
+            entry = self.sched.next_entry(self._fits,
+                                          step=self.stats["steps"])
             if entry is None:
                 break
             self._admit(i, entry)
 
     def _admit(self, i: int, entry: schd.SchedEntry):
+        req = entry.req
+        rec = entry.record
+        if rec["admit_step"] is None:
+            rec["admit_step"] = self.stats["steps"]
+            # between steps: the last step's logits are already on the host
+            rec["admit_time"] = time.perf_counter()
+        self.tracer.instant("sched.admit", tick=self.tick, role=self.role,
+                            slot=i, rid=req.rid, resumed=len(entry.out))
         self.slot_entry[i] = entry
         # recompute resume: a preempted request re-prefills its prompt
         # PLUS its generated-so-far tokens, then continues
-        self.slot_pending[i] = list(entry.req.prompt) + list(entry.out)
+        self.slot_pending[i] = list(req.prompt) + list(entry.out)
         self.slot_out[i] = list(entry.out)
         self._reset_slot_state(i)
         self.stats["fills"] += 1
+        self.slot_cache_j[i] = 0
+        if self.prefix is not None:
+            self._attach_prefix(i, entry)
+
+    def _attach_prefix(self, i: int, entry: schd.SchedEntry):
+        """Reuse cached prefix pages: their ids go into this slot's table
+        row (host mirror and device table together, one host-to-device
+        copy), ``pos`` moves past them and the covered prompt tokens are
+        skipped."""
+        n = schd.prefix.usable_prefix_pages(len(entry.req.prompt),
+                                            self.page_size)
+        pids: List[int] = []
+        for j in range(min(n, self.host_table.shape[1])):
+            pid = self.prefix.lookup(entry.hashes[j])
+            if pid is None:
+                break
+            self.alloc.ref(pid)
+            self.host_table[i, j] = pid
+            pids.append(pid)
+        if not pids:
+            return
+        self.state["page_table"][i, :len(pids)] = torch.tensor(
+            pids, dtype=torch.int32).to(self.device)
+        skip = len(pids) * self.page_size
+        self.slot_pending[i] = self.slot_pending[i][skip:]
+        self.slot_pos[i] = skip
+        self.state["pos"][i] = skip
+        self.slot_cache_j[i] = len(pids)
+        entry.prefix_pages += len(pids)
+        entry.record["prefix_pages"] += len(pids)
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_pages_reused"] += len(pids)
+        self.stats["pages_in_use"] = self.alloc.in_use
 
     def _reset_slot_state(self, i: int):
         """Release the slot's pages and rewind its position.  Stale page
@@ -164,6 +361,8 @@ class Session:
 
     # ------------------------------------------------------ paged KV admin
     def _release_slot_pages(self, i: int) -> None:
+        """Drop slot ``i``'s hold on its pages (request done, slot reset,
+        preemption); shared prefix pages just lose this slot's ref."""
         pages = [int(p) for p in self.host_table[i] if p >= 0]
         if not pages:
             return
@@ -177,6 +376,10 @@ class Session:
         tokens regenerated on re-admission."""
         entry = self.slot_entry[i]
         entry.out = list(self.slot_out[i])
+        entry.record["preemptions"] += 1
+        self.tracer.instant("sched.preempt", tick=self.tick,
+                            role=self.role, slot=i, rid=entry.req.rid,
+                            generated=len(entry.out))
         self._release_slot_pages(i)
         self.slot_entry[i] = None
         self.slot_pending[i] = []
@@ -223,13 +426,17 @@ class Session:
         self.stats["pages_peak"] = self.alloc.peak
 
     def _ensure_pages_or_preempt(self, counts: List[int]) -> None:
-        """Allocate; on OutOfPages preempt the youngest slot until the rest
-        fits.  A pool too small for one request still raises."""
+        """Allocate; on OutOfPages release prefix-cache pins LRU-first,
+        then preempt the youngest slot, until the rest fits.  A pool too
+        small for one request still raises."""
         while True:
             try:
                 self._ensure_pages(counts)
                 return
             except kvs.OutOfPages:
+                if self.prefix is not None \
+                        and self.prefix.release(self.alloc, 1):
+                    continue
                 victim = schd.Scheduler.choose_victim(self.slot_entry)
                 if victim is None:
                     raise
@@ -262,10 +469,32 @@ class Session:
         self.stats["pages_reclaimed_swa"] += len(events)
         self.stats["pages_in_use"] = self.alloc.in_use
 
+    def _insert_slot_prefix(self, i: int, entry: schd.SchedEntry) -> None:
+        """Pin slot ``i``'s freshly completed full prompt pages into the
+        prefix cache (first writer wins; generated-token pages are never
+        cached)."""
+        n_full = len(entry.req.prompt) // self.page_size
+        j = self.slot_cache_j[i]
+        while j < min(n_full, self.host_table.shape[1]) \
+                and self.slot_pos[i] >= (j + 1) * self.page_size:
+            pid = int(self.host_table[i, j])
+            if pid >= 0:           # may be gone (SWA reclamation)
+                self.prefix.insert(entry.hashes[j], pid, self.alloc)
+            j += 1
+        self.slot_cache_j[i] = j
+
+    def _insert_prefix_pages(self) -> None:
+        if self.prefix is None:
+            return
+        for i, entry in enumerate(self.slot_entry):
+            if entry is not None:
+                self._insert_slot_prefix(i, entry)
+
     # ------------------------------------------------------------ stepping
     def _advance(self):
         """A chunked step while any active slot still has prompt tokens
-        pending, a decode step otherwise; then the SWA reclamation."""
+        pending, a decode step otherwise; then the SWA reclamation and the
+        prefix cache's new pages."""
         if self.chunk > 1 and any(self.slot_pending[i]
                                   for i, e in enumerate(self.slot_entry)
                                   if e is not None):
@@ -273,6 +502,7 @@ class Session:
         else:
             self._advance_decode()
         self._reclaim_swa_pages()
+        self._insert_prefix_pages()
 
     def _active_counts(self, chunk: int) -> List[int]:
         """Tokens each slot feeds this step: up to ``chunk`` pending prompt
@@ -302,15 +532,21 @@ class Session:
                 continue
             tokens[i] = self.slot_pending[i][0] if self.slot_pending[i] \
                 else self._next_token(i, entry)
-        with torch.no_grad():
+        with self._step_ctx("decode"), torch.no_grad():
             self.state, logits = M.decode_step(
                 self.cfg, self.params, self.state,
                 torch.as_tensor(tokens, device=self.device))
+            # the copy to the host waits for the card: every time read
+            # after it is a real one, not an enqueue time
+            logits = logits[:, : self.cfg.vocab].cpu().numpy()
+        now = time.perf_counter()
         self.stats["steps"] += 1
+        self.tracer.span("step.decode", tick=self.tick, role=self.role,
+                         active=sum(1 for c in counts if c),
+                         step=self.stats["steps"])
         for i, entry in enumerate(self.slot_entry):
             if entry is not None:
                 self.slot_pos[i] += 1
-        logits = logits[:, : self.cfg.vocab].cpu().numpy()
         for i, entry in enumerate(self.slot_entry):
             if entry is None:
                 continue
@@ -318,7 +554,7 @@ class Session:
                 self.slot_pending[i].pop(0)
                 if self.slot_pending[i]:
                     continue  # still prefilling
-            self._emit(i, logits[i])
+            self._emit(i, logits[i], now)
 
     def _advance_chunked(self):
         """Mixed prefill + decode step: up to ``chunk`` prompt tokens per
@@ -333,23 +569,28 @@ class Session:
                 tokens[i, :counts[i]] = self.slot_pending[i][:counts[i]]
             else:
                 tokens[i, 0] = self._next_token(i, entry)
-        with torch.no_grad():
+        # only each slot's last fed position is sampled: bring just those
+        # rows to the host
+        last = torch.as_tensor([max(c - 1, 0) for c in counts],
+                               device=self.device)
+        with self._step_ctx("prefill"), torch.no_grad():
             self.state, logits = schd.prefill_step(
                 self.cfg, self.params, self.state,
                 torch.as_tensor(tokens, device=self.device),
                 torch.as_tensor(counts, dtype=torch.int32,
                                 device=self.device))
+            # the copy to the host waits for the card (see _advance_decode)
+            logits = logits[torch.arange(self.slots, device=self.device),
+                            last, : self.cfg.vocab].cpu().numpy()
+        now = time.perf_counter()
         self.stats["steps"] += 1
         self.stats["prefill_steps"] += 1
+        self.tracer.span("step.prefill", tick=self.tick, role=self.role,
+                         active=sum(1 for c in counts if c),
+                         tokens=sum(counts), step=self.stats["steps"])
         for i, entry in enumerate(self.slot_entry):
             if entry is not None:
                 self.slot_pos[i] += counts[i]
-        # only each slot's last fed position is sampled: bring just those
-        # rows to the host
-        last = torch.as_tensor([max(c - 1, 0) for c in counts],
-                               device=self.device)
-        logits = logits[torch.arange(self.slots, device=self.device), last,
-                        : self.cfg.vocab].cpu().numpy()
         for i, entry in enumerate(self.slot_entry):
             if entry is None:
                 continue
@@ -357,21 +598,44 @@ class Session:
                 del self.slot_pending[i][:counts[i]]
                 if self.slot_pending[i]:
                     continue  # still prefilling
-            self._emit(i, logits[i])
+            self._emit(i, logits[i], now)
 
-    def _emit(self, i: int, logits_i: np.ndarray):
-        """Greedy next token for slot ``i``; finish the request at max_new
-        and return its pages at once."""
+    def _sample(self, logits_i: np.ndarray, temperature: float) -> int:
+        """One draw from softmax(logits / T), in f64 on the host."""
+        p = torch.softmax(torch.from_numpy(logits_i).double() / temperature,
+                          dim=-1)
+        return int(torch.multinomial(p, 1, generator=self.gen))
+
+    def _emit(self, i: int, logits_i: np.ndarray, now: float):
+        """The next token for slot ``i`` (greedy, or sampled when the
+        request has a temperature); finish the request at max_new and
+        return its pages at once.  ``now``: the host clock after this
+        step's logits reached the host."""
         entry = self.slot_entry[i]
         req = entry.req
-        nxt = int(logits_i.argmax())
+        if req.temperature > 0:
+            nxt = self._sample(logits_i, req.temperature)
+        else:
+            nxt = int(logits_i.argmax())
         top2 = np.partition(logits_i, -2)[-2:]
         self.margins.setdefault(req.rid, []).append(float(top2[1] - top2[0]))
         if not np.isfinite(logits_i).all():
             self.stats["nonfinite_logit_rows"] += 1
         self.slot_out[i].append(nxt)
+        rec = entry.record
+        if rec["first_token_time"] is None:
+            rec["first_token_time"] = now
+            rec["first_token_step"] = self.stats["steps"]
+            self.tracer.instant("req.first_token", tick=self.tick,
+                                role=self.role, slot=i, rid=req.rid)
         if len(self.slot_out[i]) >= req.max_new:
             self.results.append(Result(req.rid, self.slot_out[i]))
+            rec["finish_time"] = now
+            rec["n_generated"] = len(self.slot_out[i])
+            rec["state"] = "completed"
+            self.tracer.instant("req.finish", tick=self.tick,
+                                role=self.role, slot=i, rid=req.rid,
+                                tokens=len(self.slot_out[i]))
             self.slot_entry[i] = None
             self._release_slot_pages(i)
 
@@ -379,12 +643,14 @@ class Session:
 class RecurrentSession(Session):
     """rwkv6: one recurrent state per slot, the same size at every length,
     so nothing to page whatever ``kv_cache`` asks: slots are pre-allocated,
-    admission always fits and a slot's state is zeroed on admission."""
+    admission always fits, a slot's state is zeroed on admission and there
+    is no prefix cache."""
 
     def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
         self.state = M.init_decode_state(self.cfg, self.slots, self.max_len,
                                          device=self.device)
         self.alloc = None
+        self.prefix = None
         self._swa_window = None
 
     def _fits(self, entry: schd.SchedEntry) -> bool:

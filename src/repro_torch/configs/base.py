@@ -77,6 +77,22 @@ class ArchConfig:
             out.append(w)
         return tuple(out)
 
+    def params_count(self) -> int:
+        """Approximate parameter count (the launcher's report)."""
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        dh, h, hkv = self.head_dim, self.n_heads, self.n_kv
+        emb = self.vocab_padded * d * (1 if self.tie_embeddings else 2)
+        if self.family == "rwkv6":
+            per = 4 * d * d + d * d + (d * f + f * d + d * d)  # tm + cm
+        else:
+            attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
+            if self.moe:
+                ffn = self.moe.n_experts * 3 * d * f + d * self.moe.n_experts
+            else:
+                ffn = (3 if self.gated_mlp else 2) * d * f
+            per = attn + ffn
+        return emb + L * per
+
 
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg

@@ -1,5 +1,5 @@
-"""Paged KV cache of the port: page pool, allocator and paged attention
-(decode and chunked prefill)."""
+"""Paged KV cache of the port: page pool, refcounted allocator and paged
+attention (decode and chunked prefill)."""
 from repro_torch.kvstore.alloc import (OutOfPages, PageAllocator,
                                       reclaimable_prefix)
 from repro_torch.kvstore.paged_attention import (paged_attention,

@@ -26,6 +26,9 @@ def test_import_loads_no_jax_and_no_reference():
         "from repro_torch.kernels import linear_scan, lut_matmul\n"
         "from repro_torch.models import ssm\n"
         "from repro_torch.configs import rwkv6_7b\n"
+        "import repro_torch.launch.serve, repro_torch.obs, repro_torch.sched\n"
+        "from repro_torch.sched import workload, metrics, prefix\n"
+        "from repro_torch.obs import analyze, trace, recorder, timing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -56,3 +59,25 @@ def test_engine_without_device_needs_a_card():
             Engine(get("llama3-8b"))
     assert Engine(get("llama3-8b"), device="cpu").device.type == "cpu"
 
+
+
+def test_launcher_help_loads_no_jax_and_no_reference():
+    """``python -m repro_torch.launch.serve --help`` runs with the
+    reference package and JAX made unimportable: it needs neither."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'repro')))\n"
+        "sys.argv = ['serve', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.serve',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--prefix-cache" in proc.stdout and "--device" in proc.stdout
