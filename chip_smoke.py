@@ -16,12 +16,16 @@ Phases, each of which exits non-zero when it fails:
    values, 40000 columns (int32 ids), rows of row_nnz = 0, three dense
    rows and gemma2-2b's gelu gate, density 0.25; every call twice, bit-identical, and every column
    of every width bit-identical to the same column run alone and among 4;
+   hymba-1.5b's nine at 1, 4 and 32 columns (one layer timed at 4);
+   untimed, every other projection shape of the served families and
+   hubert's;
    the kernels a call, from the profiler (the gather variant: one launch);
 3. K2 (paged-attention decode) against its plain version at B=4, H=32,
    Hkv=8, Dh=128, page 16, contexts 37 and 2048, bf16 and int8 pages,
    window -1 / 64, softcap none / 30, with -1 holes and an empty row, at
-   Dh 80, 96, 64 and 256 (softcap 50) too, and with an f32 q; every row
-   run alone must equal the same row among 4 bit for bit;
+   Dh 80, 96, 64 and 256 (softcap 50) too, at hymba's query group of 5
+   (H 25 / Hkv 5, Dh 64, window 1024), and with an f32 q; every row run
+   alone must equal the same row among 4 bit for bit;
 4. K3 (paged-attention chunk) likewise at C = 1 and 8, with padded
    queries past the written context; every query of a chunk must equal K2
    on that query alone bit for bit, and every row alone the same row
@@ -33,10 +37,11 @@ Phases, each of which exits non-zero when it fails:
 6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
    at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
    (windows, softcaps, non-causal, Hkv 1-32, D 64 / 80 / 96 / 128 / 256,
-   ragged T, bf16 and f32); a second run of each must repeat bit for
+   ragged T, bf16 and f32; hymba's 25 / 5 heads windowed, hubert's 16 /
+   16 non-causal at D 80); a second run of each must repeat bit for
    bit; K8's errors are logged beside those of an f32-FMA K8, as its
    products run on the tensor cores with f32 operands split into bf16
-   hi + lo; timed at each head dim's training shape;
+   hi + lo; timed at each model's training shape;
 7. K9 (the rwkv6 WKV scan) against its plain version at rwkv6-7b's
    forward shape (B=2, H=64, T=2048, 64 x 64 state, bf16 r / k / v read
    through strided head views), the reference's test shapes, its
@@ -65,27 +70,42 @@ Phases, each of which exits non-zero when it fails:
    alone; seeded sampling repeated; the tick-clock trace equal to the CPU
    run's; and ``python -m repro_torch.launch.serve`` (qwen1.5-0.5b, full
    size, aida, shared-prefix, sjf, prefix cache) exiting 0 with every
-   request served, none leaked and the card in its provenance;
-10. fresh int8 and codebook4 engines serve the same requests at chunk 8
-    through K4 / K5 (one launch a call), then a short profiled serve each
-    (device busy, kernels a step, K4 / K5 as the "fc" family); then
-    qwen1.5-0.5b (24 layers), h2o-danube-1.8b and gemma2-2b (4 layers)
-    and mixtral-8x7b (2 layers) at full width, aida 0.25, at chunk 1 and
-    8 with every launch counted (a dense family's chunk-8 tokens equal to
-    its chunk-1 ones up to near-tie flips);
+   request served, none leaked and the card in its provenance; and, on
+   the same engine, the four requests from the full KV cache
+   (``kv_cache="full"``: chunk 1, no paged-attention launch, tokens equal
+   to the paged chunk-1 serve's up to near-tie flips);
+10. fresh int8 and codebook4 engines (8 of 32 layers) serve the same
+    requests at chunk 8 through K4 / K5 (one launch a call), then a short
+    profiled serve each (device busy, kernels a step, K4 / K5 as the "fc"
+    family); then qwen1.5-0.5b (8 of 24 layers), h2o-danube-1.8b, gemma2-2b and
+    phi-3-vision-4.2b (4 layers, text) and mixtral-8x7b (2 layers) at full
+    width, aida 0.25, at chunk 1 and 8 with every launch counted (a dense
+    family's chunk-8 tokens equal to its chunk-1 ones up to near-tie
+    flips); then hymba-1.5b at full width and depth, aida 0.25, at chunk
+    1, paged and from the full cache (K1 nine times a layer and step, K2
+    once at a query group of 5 on the paged route; tokens equal up to
+    near-tie flips), each then profiled;
 11. the training path: llama3-8b at full width, depth cut to 4 layers,
     ``trainer.run(attn_impl="flash", remat="dots")`` for 4 steps on 2 x
     2048 tokens through K7 / K8 (exact launch counts: K7 twice a layer and
     step, once forward and once in the recompute; finite and falling
     loss; peak memory), then one profiled step, then the same steps under
     ``remat="none"`` beside it; then gemma2-2b (K7 / K8 at D 256, softcap
-    50) and h2o-danube-1.8b (D 80) at full width, 2 layers, 2 steps each,
-    finite losses, exact launch counts;
+    50), h2o-danube-1.8b (D 80), hymba-1.5b (layer 0 global, layer 1
+    windowed 1024, the mamba scan as plain ops) and phi-3-vision-4.2b (576
+    image rows + 2048 tokens) at full width, 2 layers, and hubert-xlarge
+    (non-causal) at 4, 2 steps each, finite losses, exact launch counts;
+    hubert-xlarge's forward at full depth (48 layers, 2 x 2048 frames: K7
+    once a layer), finite logits;
 12. a reduced llama3-8b served on the card and on the CPU gives the same
     greedy tokens (or differs only at a near-tie), in all three modes, and
     trained 3 steps on both from the same state gives the same losses
     within 1e-2; each new family, reduced with its real head dim, gives
     the CPU's tokens (or a near-tie) and SWA reclamation at chunk 1 and 8;
+    reduced hymba served paged and from the full cache gives the CPU's
+    tokens, hubert's and phi-3-vision's training losses are the CPU's
+    within 1e-2, and reduced h2o-danube's ring cache serves its paged
+    tokens while the pages behind the window are freed;
 13. rwkv6-7b at full width, all 32 layers: ``forward`` over 2 x 2048
     tokens (one K9 launch per layer, finite logits), equal to
     ``decode_step`` fed the first 32 tokens one at a time within the
@@ -242,6 +262,10 @@ RWKV6_PROJECTIONS = [              # rwkv6-7b: time mix, then channel mix
     ("tm.wr", 4096, 4096), ("tm.wk", 4096, 4096), ("tm.wv", 4096, 4096),
     ("tm.wg", 4096, 4096), ("tm.wo", 4096, 4096), ("cm.wk", 14336, 4096),
     ("cm.wv", 4096, 14336), ("cm.wr", 4096, 4096)]
+HYMBA_PROJECTIONS = [              # hymba-1.5b: attention, MLP, mamba
+    ("wq", 1600, 1600), ("wk", 320, 1600), ("wv", 320, 1600),
+    ("wo", 1600, 1600), ("gate", 5504, 1600), ("up", 5504, 1600),
+    ("down", 1600, 5504), ("in_proj", 3200, 1600), ("out_proj", 1600, 1600)]
 # column counts K1 is held at: 1 and 8 bound the gather variant, and 3
 # takes its loop for widths other than 1, 4 and 8; 12 and 40 take the wide
 # variant's 16-column pass and a second (8-column) group after a 32-column
@@ -263,25 +287,29 @@ def _k1_weight(gen, dev, n_out, n_in, name):
 
 
 def _family_projections():
-    """The compressed projections of the families that FAMILY_SERVES serves,
-    as (label, n_out, n_in, activation, bias), one for each distinct
-    (n_out, n_in, activation, bias) that llama3-8b's seven and GELU_GATE
-    do not already cover (a MoE layer's experts stay uncompressed: only
-    its attention)."""
+    """The compressed projections of the families that FAMILY_SERVES serves
+    and of hubert (ungated gelu MLP; its session is refused, but
+    compression takes its layers), as (label, n_out, n_in, activation,
+    bias), one for each
+    distinct (n_out, n_in, activation, bias) that llama3-8b's seven and
+    GELU_GATE do not already cover (a MoE layer's experts stay
+    uncompressed: only its attention)."""
     from repro_torch import get
     seen = {(o, i, {"gate": "silu"}.get(n), False) for n, o, i in PROJECTIONS}
     seen.add((GELU_GATE[1], GELU_GATE[2], "gelu", False))
     out = {}
-    for arch, _ in FAMILY_SERVES:
+    for arch in [a for a, _ in FAMILY_SERVES] + ["hubert-xlarge"]:
         cfg = get(arch)
         d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
         proj = [("wq", cfg.n_heads * hd, d, None, cfg.qkv_bias),
                 ("wk", cfg.n_kv * hd, d, None, cfg.qkv_bias),
                 ("wv", cfg.n_kv * hd, d, None, cfg.qkv_bias),
                 ("wo", d, cfg.n_heads * hd, None, False)]
-        if cfg.moe is None:
+        if cfg.moe is None and cfg.gated_mlp:
             proj += [("gate", f, d, cfg.act, False), ("up", f, d, None, False),
                      ("down", d, f, None, False)]
+        elif cfg.moe is None:
+            proj += [("up", f, d, cfg.act, False), ("down", d, f, None, False)]
         for name, o, i, act, bias in proj:
             key = (o, i, act, bias)
             if key not in seen:
@@ -301,7 +329,9 @@ def k1_phase(dev, flush):
     call run twice and bit-identical, and every column of every width
     bit-identical to the same column run alone and among 4 (one sum order
     a column): llama3-8b's seven projections (aida 0.25) at every column
-    count of K1_COLUMNS, rwkv6-7b's eight at 4 columns, and five more
+    count of K1_COLUMNS, rwkv6-7b's eight at 4 columns, hymba-1.5b's nine
+    (its mamba heads' in / out projections among them) at 1, 4 and 32
+    columns, and five more
     containers: acsr with f32 and with bf16 values, 40000 columns (int32
     ids), rows of row_nnz = 0, three dense rows (at 1, 4, 8 columns) and
     gemma2-2b's gate with its tanh-gelu epilogue (at 1, 4, 32 columns);
@@ -309,8 +339,8 @@ def k1_phase(dev, flush):
     the families served at full width (``_family_projections``: qwen1.5's
     q / k / v with their bias, h2o-danube's and gemma2-2b's).  Times at
     the serve's shapes.  Returns
-    the max errors and llama3-8b's per-layer totals by variant, and
-    rwkv6-7b's per-layer total at 4 columns."""
+    the max errors, llama3-8b's per-layer totals by variant, and
+    rwkv6-7b's and hymba-1.5b's per-layer totals at 4 columns."""
     import torch
     from repro_torch.core import sparse_fc as sfc
     from repro_torch.kernels import acsr_spmv as sp
@@ -321,11 +351,14 @@ def k1_phase(dev, flush):
     totals = {(_k1_variant(m), m): dict.fromkeys(keys, 0.0)
               for m in K1_TIMED}
     rwkv6 = dict.fromkeys(keys, 0.0)
+    hymba = dict.fromkeys(keys, 0.0)
     # (label, n_out, n_in, mode, value dtype, column counts, per-layer sum)
     cases = [(n, o, i, "aida", "f32", K1_COLUMNS, "llama")
              for n, o, i in PROJECTIONS] + \
         [(f"rwkv6 {n}", o, i, "aida", "f32", (4,), "rwkv6")
          for n, o, i in RWKV6_PROJECTIONS] + \
+        [(f"hymba {n}", o, i, "aida", "f32", (1, 4, 32), "hymba")
+         for n, o, i in HYMBA_PROJECTIONS] + \
         [("wo-acsr-f32", 4096, 4096, "acsr", "f32", K1_COLUMNS, None),
          ("wo-acsr-bf16", 4096, 4096, "acsr", "bf16", K1_COLUMNS, None),
          ("wide-int32", 1024, 40000, "aida", "f32", K1_COLUMNS, None),
@@ -353,7 +386,8 @@ def k1_phase(dev, flush):
         if name == "empty-rows" and int((b.row_nnz == 0).sum()) < 128:
             raise AssertionError("the empty-rows case has no empty rows")
         act, has_bias = epilogue.get(name, (None, False))
-        act = {"gate": "silu", GELU_GATE[0]: "gelu"}.get(name, act)
+        act = {"gate": "silu", "hymba gate": "silu",
+               GELU_GATE[0]: "gelu"}.get(name, act)
         bias = torch.randn((n_out,), generator=gen, device=dev) \
             if name in ("wq", "wide-int32") or has_bias else None
         rows = b.nblocks * b.block_rows
@@ -391,7 +425,8 @@ def k1_phase(dev, flush):
             n_same += 1
             err = check_close(what, out, plain, 1e-4, 1e-4)
             errs[kern] = max(errs[kern], err)
-            if batch not in K1_TIMED or layer_of == "held":
+            if batch not in K1_TIMED or layer_of == "held" or \
+                    (layer_of == "hymba" and batch != 4):
                 log(f"K1 {what} {n_out}x{n_in} act={act} "
                     f"bias={bias is not None} err={err:.2e} (rerun and "
                     "every column bit-identical)")
@@ -426,6 +461,8 @@ def k1_phase(dev, flush):
                 row = totals[(kern, batch)]
             elif layer_of == "rwkv6":
                 row = rwkv6
+            elif layer_of == "hymba":
+                row = hymba
             if row is not None:    # one layer's projections
                 for key, v in zip(keys, (t_k, t_p, bms, t_l)):
                     row[key] += v
@@ -441,7 +478,9 @@ def k1_phase(dev, flush):
     log("K1 acsr_spmv_gather one rwkv6-7b layer (8 projections, B=4): "
         + " ".join(f"{k}={rwkv6[k]:.4f}" for k in keys))
     times = {kern: {batch: row} for (kern, batch), row in totals.items()}
-    return errs, times, rwkv6
+    log("K1 acsr_spmv_gather one hymba-1.5b layer (9 projections, B=4): "
+        + " ".join(f"{k}={hymba[k]:.4f}" for k in keys))
+    return errs, times, {"rwkv6-7b": rwkv6, "hymba-1.5b": hymba}
 
 
 def time_gather(dev, flush):
@@ -483,10 +522,16 @@ def time_gather(dev, flush):
 # contexts K2 and K3 are timed at (37: the serve's, in a table of 256)
 PAGED_TIMED = ((37, 256), (256, 256), (2048, 2048), (8192, 8192))
 # head dims beside llama3-8b's 128, held against the plain version:
-# (Dh, H, Hkv, the softcap of the windowed case) of h2o-danube-1.8b,
-# phi-3-vision-4.2b, qwen1.5-0.5b and gemma2-2b (its attention softcap)
-PAGED_HEAD_DIMS = ((80, 32, 8, 30.0), (96, 32, 32, 30.0), (64, 16, 16, 30.0),
-                   (256, 8, 4, 50.0))
+# (Dh, H, Hkv, the window and softcap of the windowed case) of
+# h2o-danube-1.8b, phi-3-vision-4.2b, qwen1.5-0.5b, gemma2-2b (its
+# attention softcap) and hymba-1.5b (a query group of 5, its window 1024)
+PAGED_HEAD_DIMS = ((80, 32, 8, 64, 30.0), (96, 32, 32, 64, 30.0),
+                   (64, 16, 16, 64, 30.0), (256, 8, 4, 64, 50.0),
+                   (64, 25, 5, 1024, None))
+# the served geometries of this slice's models, timed at contexts 37 and
+# 2048 beside llama3-8b's: (model, H, Hkv, Dh, window)
+PAGED_MODELS = (("hymba-1.5b", 25, 5, 64, 1024),
+                ("phi-3-vision-4.2b", 32, 32, 96, -1))
 
 
 def _k2_inputs(dev, gen, ctx, kv_dtype, batch=4, h=32, hkv=8, dh=128,
@@ -552,8 +597,10 @@ def k2_phase(dev, flush):
     """K2 against its plain version at llama3-8b's geometry (contexts 37
     and 2048, bf16 and int8 pages, window -1 / 64, cap none / 30, a row
     with holes, an idle row), every row alone bit-identical to the same
-    row among 4; at Dh 80, 96, 64 and 256 (softcap 50); with an f32 q;
-    then timed at PAGED_TIMED.  Returns (max abs err, {ctx: times})."""
+    row among 4; at Dh 80, 96, 64 and 256 (softcap 50) and hymba's query
+    group of 5 (25 / 5 heads, window 1024); with an f32 q; then timed at
+    PAGED_TIMED and at PAGED_MODELS' geometries.  Returns (max abs err,
+    {ctx: times}, {(model, ctx): times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import paged_attention
@@ -563,9 +610,9 @@ def k2_phase(dev, flush):
              for ctx in (37, 2048) for kv in ("bf16", "int8")
              for window in (-1, 64) for cap in (None, 30.0)]
     cases += [(dh, h, hkv, ctx, kv, window, cap)
-              for dh, h, hkv, wcap in PAGED_HEAD_DIMS for ctx in (37, 2048)
-              for kv in ("bf16", "int8")
-              for window, cap in ((-1, None), (64, wcap))]
+              for dh, h, hkv, win, wcap in PAGED_HEAD_DIMS
+              for ctx in (37, 2048) for kv in ("bf16", "int8")
+              for window, cap in ((-1, None), (win, wcap))]
     for dh, h, hkv, ctx, kv_dtype, window, cap in cases:
         q, pool, table, cur = _k2_inputs(dev, gen, ctx, kv_dtype, h=h,
                                          hkv=hkv, dh=dh)
@@ -590,37 +637,55 @@ def k2_phase(dev, flush):
             max_err = max(max_err, check_close(what + " f32 q", out, plain,
                                                0, 1e-4))
             n += 1
-    log(f"K2 {n} cases agree (Dh 128, 80, 96, 64, 256; f32 q), max abs err "
-        f"{max_err:.2e}; every row alone bit-identical to it among 4")
-    rows, scale = {}, 128 ** -0.5
-    for ctx, max_len in PAGED_TIMED:
-        q, pool, table, cur = _k2_inputs(dev, gen, ctx, "bf16",
-                                         max_len=max_len)
-        _, hkv, ps, dh = pool.k_pages.shape
-        b, h = q.shape[:2]
-        pairs = int(((table >= 0).repeat_interleave(ps, dim=1)
-                     [:, :ctx]).sum()) * h
-        (bms, by), live_pages = _paged_bound(dev, table, cur, hkv, ps, dh,
-                                             q, b * h * dh, pairs)
-        t_k, host = median_ms(lambda: paged_attention(
-            q, pool, table, cur, -1, scale=scale), flush=flush)
-        t_p, _ = median_ms(lambda: ref.paged_attention_ref(
-            q, *pool, table, cur, -1, scale, None), iters=5, flush=flush)
-        safe = table.long().clamp(min=0)[:, : -(-ctx // ps)]
-        kk = pool.k_pages[safe].permute(0, 2, 1, 3, 4).reshape(
-            b, hkv, -1, dh)[:, :, :ctx].contiguous()
-        vv = pool.v_pages[safe].permute(0, 2, 1, 3, 4).reshape(
-            b, hkv, -1, dh)[:, :, :ctx].contiguous()
-        qq = q[:, :, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        t_l, _ = median_ms(lambda: sdpa(qq, kk, vv, scale=scale,
-                                        enable_gqa=True), flush=flush)
-        log(f"K2 ctx={ctx} npp={table.shape[1]} live_pages={live_pages} "
-            f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-            f"bound_ms={bms:.5f} ({by}) host_enqueue_ms={host:.4f}")
-        rows[ctx] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
-                     "bound_by": by, "library_ms": t_l}
-    return max_err, rows
+    log(f"K2 {n} cases agree (Dh 128, 80, 96, 64, 256; a query group of "
+        f"5; f32 q), max abs err {max_err:.2e}; every row alone "
+        "bit-identical to it among 4")
+    rows = {ctx: _time_k2(dev, gen, flush, ctx, max_len, "")
+            for ctx, max_len in PAGED_TIMED}
+    models = {(m, ctx): _time_k2(dev, gen, flush, ctx, ctx, f" {m}", win,
+                                 h=h, hkv=hkv, dh=dh)
+              for m, h, hkv, dh, win in PAGED_MODELS for ctx in (37, 2048)}
+    return max_err, rows, models
+
+
+def _time_k2(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
+    """K2's, its plain version's and SDPA's times (on K / V gathered from
+    the pages, the window as a mask) at one context and geometry, beside
+    its bound.  Returns the row of the kernels line."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kvstore.paged_attention import paged_attention
+    from repro_torch.kvstore.pool import chunk_attention_mask
+    q, pool, table, cur = _k2_inputs(dev, gen, ctx, "bf16", max_len=max_len,
+                                     **geo)
+    _, hkv, ps, dh = pool.k_pages.shape
+    b, h = q.shape[:2]
+    scale = dh ** -0.5
+    mask = chunk_attention_mask(table, cur[:, None], window, ps)  # [B, 1, S]
+    pairs = int(mask.sum()) * h
+    (bms, by), live_pages = _paged_bound(dev, table, cur, hkv, ps, dh, q,
+                                         b * h * dh, pairs)
+    t_k, host = median_ms(lambda: paged_attention(
+        q, pool, table, cur, window, scale=scale), flush=flush)
+    t_p, _ = median_ms(lambda: ref.paged_attention_ref(
+        q, *pool, table, cur, window, scale, None), iters=5, flush=flush)
+    safe = table.long().clamp(min=0)[:, : -(-ctx // ps)]
+    kk = pool.k_pages[safe].permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, -1, dh)[:, :, :ctx].contiguous()
+    vv = pool.v_pages[safe].permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, -1, dh)[:, :, :ctx].contiguous()
+    qq = q[:, :, None, :]
+    amask = None if window < 0 else \
+        mask[:, None, :, :ctx].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_l, _ = median_ms(lambda: sdpa(qq, kk, vv, attn_mask=amask, scale=scale,
+                                    enable_gqa=True), flush=flush)
+    log(f"K2{label} H={h}/{hkv} Dh={dh} window={window} ctx={ctx} "
+        f"npp={table.shape[1]} live_pages={live_pages} kernel_ms={t_k:.4f} "
+        f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.5f} ({by}) "
+        f"host_enqueue_ms={host:.4f}")
+    return {"ms": t_k, "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+            "library_ms": t_l}
 
 
 # ------------------------------------------------------------------ K3
@@ -644,15 +709,16 @@ def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None, **geo):
 
 def k3_phase(dev, flush):
     """K3 against its plain version at C = 1 and 8 over K2's cases (and
-    Dh 80 / 96 / 64 / 256 at C = 8): at C = 1 bit-identical to K2; at C = 8 every row
+    Dh 80 / 96 / 64 / 256 and hymba's group of 5 at C = 8, that group at
+    C = 1 too): at C = 1 bit-identical to K2; at C = 8 every row
     bit-identical to K2 on that query alone at its position, and every
-    batch row alone to it among 4; then timed at C = 8 at PAGED_TIMED.
-    Returns (max abs err, {ctx: times})."""
+    batch row alone to it among 4; then timed at C = 8 at PAGED_TIMED and
+    at phi-3-vision's geometry.  Returns (max abs err, {ctx: times},
+    {(model, ctx): times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import (paged_attention,
                                                      paged_attention_chunk)
-    from repro_torch.kvstore.pool import chunk_attention_mask
     gen = torch.Generator(device=dev).manual_seed(2)
     max_err, n = 0.0, 0
     cases = [(128, 32, 8, chunk, ctx, kv, window, cap)
@@ -660,9 +726,11 @@ def k3_phase(dev, flush):
              for kv in ("bf16", "int8") for window in (-1, 64)
              for cap in (None, 30.0)]
     cases += [(dh, h, hkv, 8, ctx, kv, window, cap)
-              for dh, h, hkv, wcap in PAGED_HEAD_DIMS for ctx in (37, 2048)
-              for kv in ("bf16", "int8")
-              for window, cap in ((-1, None), (64, wcap))]
+              for dh, h, hkv, win, wcap in PAGED_HEAD_DIMS
+              for ctx in (37, 2048) for kv in ("bf16", "int8")
+              for window, cap in ((-1, None), (win, wcap))]
+    cases += [(64, 25, 5, 1, ctx, "bf16", window, None)
+              for ctx in (37, 2048) for window in (-1, 1024)]
     for dh, h, hkv, chunk, ctx, kv_dtype, window, cap in cases:
         q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv_dtype, chunk,
                                            h=h, hkv=hkv, dh=dh)
@@ -688,41 +756,56 @@ def k3_phase(dev, flush):
         _alone_equals_among(lambda qq, tt, pp: paged_attention_chunk(
             qq, pool, tt, pp, window, scale=scale, cap=cap),
             q, table, q_pos, out, what)
-    log(f"K3 {n} cases agree (Dh 128, 80, 96, 64, 256), max abs err "
+    log(f"K3 {n} cases agree (Dh 128, 80, 96, 64, 256; a query group of "
+        "5 at C = 1 and 8), max abs err "
         f"{max_err:.2e}; "
         "every query bit-identical to K2 on it alone (C = 1 and 8), every "
         "row alone to it among 4")
-    rows, scale = {}, 128 ** -0.5
-    for ctx, max_len in PAGED_TIMED:
-        q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, "bf16", 8,
-                                           max_len=max_len)
-        _, hkv, ps, dh = pool.k_pages.shape
-        b, h, c = q.shape[:3]
-        mask = chunk_attention_mask(table, q_pos, -1, ps)     # [B, C, S]
-        (bms, by), live_pages = _paged_bound(
-            dev, table, q_pos, hkv, ps, dh, q, q.numel(),
-            int(mask.sum()) * h)
-        t_k, host = median_ms(lambda: paged_attention_chunk(
-            q, pool, table, q_pos, -1, scale=scale), flush=flush)
-        t_p, _ = median_ms(lambda: ref.paged_attention_chunk_ref(
-            q, *pool, table, q_pos, -1, scale, None), iters=5, flush=flush)
-        safe = table.long().clamp(min=0)
-        kk = pool.k_pages[safe].permute(0, 2, 1, 3, 4).reshape(
-            b, hkv, -1, dh).contiguous()
-        vv = pool.v_pages[safe].permute(0, 2, 1, 3, 4).reshape(
-            b, hkv, -1, dh).contiguous()
-        amask = mask[:, None].contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        t_l, _ = median_ms(lambda: sdpa(q, kk, vv, attn_mask=amask,
-                                        scale=scale, enable_gqa=True),
-                           flush=flush)
-        log(f"K3 C={c} ctx={ctx} npp={table.shape[1]} "
-            f"live_pages={live_pages} kernel_ms={t_k:.4f} "
-            f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.5f} "
-            f"({by}) host_enqueue_ms={host:.4f}")
-        rows[ctx] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bms,
-                     "bound_by": by, "library_ms": t_l}
-    return max_err, rows
+    rows = {ctx: _time_k3(dev, gen, flush, ctx, max_len, "")
+            for ctx, max_len in PAGED_TIMED}
+    # this slice's chunked serve: phi-3-vision (hymba serves at chunk 1)
+    models = {(m, ctx): _time_k3(dev, gen, flush, ctx, ctx, f" {m}", win,
+                                 h=h, hkv=hkv, dh=dh)
+              for m, h, hkv, dh, win in PAGED_MODELS[1:]
+              for ctx in (37, 2048)}
+    return max_err, rows, models
+
+
+def _time_k3(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
+    """K3's (C = 8), its plain version's and SDPA's (chunk mask) times at
+    one context and geometry, beside its bound.  Returns the row of the
+    kernels line."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kvstore.paged_attention import paged_attention_chunk
+    from repro_torch.kvstore.pool import chunk_attention_mask
+    q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, "bf16", 8,
+                                       max_len=max_len, **geo)
+    _, hkv, ps, dh = pool.k_pages.shape
+    b, h, c = q.shape[:3]
+    scale = dh ** -0.5
+    mask = chunk_attention_mask(table, q_pos, window, ps)     # [B, C, S]
+    (bms, by), live_pages = _paged_bound(
+        dev, table, q_pos, hkv, ps, dh, q, q.numel(), int(mask.sum()) * h)
+    t_k, host = median_ms(lambda: paged_attention_chunk(
+        q, pool, table, q_pos, window, scale=scale), flush=flush)
+    t_p, _ = median_ms(lambda: ref.paged_attention_chunk_ref(
+        q, *pool, table, q_pos, window, scale, None), iters=5, flush=flush)
+    safe = table.long().clamp(min=0)
+    kk = pool.k_pages[safe].permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, -1, dh).contiguous()
+    vv = pool.v_pages[safe].permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, -1, dh).contiguous()
+    amask = mask[:, None].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_l, _ = median_ms(lambda: sdpa(q, kk, vv, attn_mask=amask, scale=scale,
+                                    enable_gqa=True), flush=flush)
+    log(f"K3{label} C={c} H={h}/{hkv} Dh={dh} window={window} ctx={ctx} "
+        f"npp={table.shape[1]} live_pages={live_pages} kernel_ms={t_k:.4f} "
+        f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.5f} ({by}) "
+        f"host_enqueue_ms={host:.4f}")
+    return {"ms": t_k, "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+            "library_ms": t_l}
 
 
 # -------------------------------------------------------------- K4, K5
@@ -845,9 +928,24 @@ FLASH_CASES = [
     (2, 256, 333, "f32", True, None, 50.0),
     (4, 256, 300, "f32", False, 64, None),
 ]
-# the timed shapes, per head dim, at 2 x 2048 tokens: (model, H, Hkv, D)
-FLASH_TIMED = (("h2o-danube-1.8b", 32, 8, 80), ("phi-3-vision-4.2b", 32, 32, 96),
-               ("llama3-8b", 32, 8, 128), ("gemma2-2b", 8, 4, 256))
+# the same at other query-head counts (H first): hymba's group of 5 (25 /
+# 5 heads, D 64, windowed) and hubert's non-causal multi-head attention
+# (16 / 16, D 80)
+FLASH_GROUP_CASES = [
+    (25, 5, 64, 2048, "bf16", True, 1024, None),
+    (25, 5, 64, 333, "f32", True, 64, None),
+    (25, 5, 64, 300, "bf16", True, None, 30.0),
+    (16, 16, 80, 2048, "bf16", False, None, None),
+    (16, 16, 80, 333, "f32", False, None, None),
+]
+# the timed shapes at 2 x 2048 tokens, bf16: (model, H, Hkv, D, causal,
+# window), a model's training (or, hubert, forward) attention
+FLASH_TIMED = (("h2o-danube-1.8b", 32, 8, 80, True, None),
+               ("phi-3-vision-4.2b", 32, 32, 96, True, None),
+               ("llama3-8b", 32, 8, 128, True, None),
+               ("gemma2-2b", 8, 4, 256, True, None),
+               ("hymba-1.5b", 25, 5, 64, True, 1024),
+               ("hubert-xlarge", 16, 16, 80, False, None))
 # kernel vs plain version: both f32 over the same (bf16-exact) inputs,
 # summed in another order (tiles vs whole rows; dk / dv over G * T rows);
 # K7's and K8's f32 operands enter their tensor-core products as bf16
@@ -874,17 +972,18 @@ def _flash_inputs(dev, gen, hkv, d, t, dtype, b=2, h=32):
 
 
 def flash_phase(dev, flush):
-    """K7 and K8 against their plain versions over FLASH_CASES, each
-    kernel twice (bit-identical), then times at each head dim's training
-    shape.  Returns the max errors and the timing rows by kernel and head
-    dim."""
+    """K7 and K8 against their plain versions over FLASH_CASES (32 query
+    heads) and FLASH_GROUP_CASES, each kernel twice (bit-identical), then
+    times at each model's training shape.  Returns the max errors and the
+    timing rows by kernel and model."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = dict.fromkeys(FLASH_TOL, 0.0)
-    for hkv, d, t, dtype, causal, window, cap in FLASH_CASES:
-        q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, dtype)
+    for h, hkv, d, t, dtype, causal, window, cap in \
+            [(32,) + c for c in FLASH_CASES] + FLASH_GROUP_CASES:
+        q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, dtype, h=h)
         kw = dict(causal=causal, window=window, softcap=cap)
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         delta = (do * o).sum(dim=-1, keepdim=True)
@@ -894,7 +993,7 @@ def flash_phase(dev, flush):
                  fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),
                  *fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw))
         torch.cuda.synchronize()
-        what = (f"flash B=2 H=32 Hkv={hkv} D={d} T={t} {dtype} "
+        what = (f"flash B=2 H={h} Hkv={hkv} D={d} T={t} {dtype} "
                 f"causal={causal} window={window} softcap={cap}")
         for name, a, b in zip(("o", "lse", "dq", "dk", "dv"),
                               (o, lse, dq, dk, dv), again):
@@ -916,11 +1015,12 @@ def flash_phase(dev, flush):
         log(f"{what}: max abs err " + ", ".join(line) + "; max abs "
             + ", ".join(f"{n} {float(x.abs().max()):.3g}"
                         for n, x in got.items()))
-        if (hkv, d, t, causal, window, cap) == (8, 128, 2048, True, None,
-                                                None):
+        if (h, hkv, d, t, causal, window, cap) == (32, 8, 128, 2048, True,
+                                                   None, None):
             _sdpa_check(q, k, v, do, got)
         del q, k, v, do, o, lse, dq, dk, dv, again, po, plse, got, want
-    log(f"K7/K8 {len(FLASH_CASES)} cases agree (tolerance rtol = atol: "
+    log(f"K7/K8 {len(FLASH_CASES) + len(FLASH_GROUP_CASES)} cases agree "
+        "(tolerance rtol = atol: "
         + ", ".join(f"{k} {v:g}" for k, v in FLASH_TOL.items())
         + "); o, lse, dq, dk and dv bit-identical on rerun in every case")
     log(f"K7 max abs err over the cases (tensor cores, p as bf16 hi + lo): "
@@ -951,25 +1051,28 @@ def _sdpa_check(q, k, v, do, got):
 
 def flash_times(dev, flush):
     """Kernel, plain-version and SDPA times at each FLASH_TIMED shape (B 2,
-    T 2048, bf16, causal; gemma2's softcap left out so that SDPA computes
-    the same function) with the least time the card needs: bytes (inputs
-    read once, outputs written once) over 3.35 TB/s vs the causal pairs'
-    multiply-adds over the bf16 peak (the inputs are bf16).  Forward 4
-    flops per (pair, dim): q.k and p.v; dq 6 (q.k, do.v, ds.k); dkv 8
-    (q.k, do.v, p.do, ds.q).  Returns {kernel: {D: row}}."""
+    T 2048, bf16, causal or not, windowed or not; gemma2's softcap left
+    out so that SDPA computes the same function, a window given to SDPA as
+    a mask) with the least time the card needs: bytes (inputs read once,
+    outputs written once) over 3.35 TB/s vs the open pairs' multiply-adds
+    over the bf16 peak (the inputs are bf16).  Forward 4 flops per (pair,
+    dim): q.k and p.v; dq 6 (q.k, do.v, ds.k); dkv 8 (q.k, do.v, p.do,
+    ds.q).  Returns {kernel: {model: row}}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = {name: {} for name in FLASH}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for model, h, hkv, d in FLASH_TIMED:
+    for model, h, hkv, d, causal, window in FLASH_TIMED:
         t = 2048
         q, k, v, do = _flash_inputs(dev, gen, hkv, d, t, "bf16", h=h)
         b = q.shape[0]
-        o, lse = fa.flash_attention_fwd(q, k, v)
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         delta = (do * o).sum(dim=-1, keepdim=True)
-        pairs = b * h * t * (t + 1) // 2
+        mask = ref._attention_mask(t, t, causal, window, dev)
+        pairs = b * h * int(mask.sum())
         qkv = (q.numel() + 2 * k.numel()) * 2
         rows_f32 = b * h * t * 4                        # lse or delta
         work = {
@@ -982,22 +1085,25 @@ def flash_times(dev, flush):
         }
         calls = {
             "flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd(q, k, v),
-                lambda: ref.flash_attention_fwd_ref(q, k, v)),
+                lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                lambda: ref.flash_attention_fwd_ref(q, k, v, **kw)),
             "flash_attention_dq": (
-                lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
-                lambda: ref.flash_attention_dq_ref(q, k, v, do, lse,
-                                                   delta)),
+                lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+                lambda: ref.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                                   **kw)),
             "flash_attention_dkv": (
-                lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
-                lambda: ref.flash_attention_dkv_ref(q, k, v, do, lse,
-                                                    delta)),
+                lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta,
+                                               **kw),
+                lambda: ref.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                    **kw)),
         }
+        lib = dict(is_causal=True) if causal and window is None else \
+            dict(attn_mask=mask) if window is not None else {}
         lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
-        lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+        lo = sdpa(lq, lk, lv, enable_gqa=True, **lib)
         ldo = do.to(torch.bfloat16)
-        t_lf, _ = median_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                         enable_gqa=True), flush=flush)
+        t_lf, _ = median_ms(lambda: sdpa(q, k, v, enable_gqa=True, **lib),
+                            flush=flush)
         t_lb, _ = median_ms(lambda: torch.autograd.grad(
             lo, (lq, lk, lv), ldo, retain_graph=True), flush=flush)
         for name, (kern, plain) in calls.items():
@@ -1007,16 +1113,16 @@ def flash_times(dev, flush):
             fwd = name == "flash_attention_fwd"
             t_l = t_lf if fwd else t_lb
             log(f"{name} {model} B={b} H={h} Hkv={hkv} T={t} D={d} bf16 "
-                f"causal kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-                f"library_ms={t_l:.4f} "
+                f"causal={causal} window={window} kernel_ms={t_k:.4f} "
+                f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
                 f"({'SDPA forward' if fwd else 'SDPA backward'}) "
                 f"bound_ms={bms:.4f} ({by}) "
                 f"tflops={work[name][1] / t_k / 1e9:.2f} "
                 f"host_enqueue_ms={host:.4f}")
-            rows[name][d] = {"model": model, "ms": t_k, "plain_ms": t_p,
-                             "bound_ms": bms, "bound_by": by,
-                             "library_ms": t_l}
-        del q, k, v, do, o, lse, delta, lq, lk, lv, lo, ldo
+            rows[name][model] = {"head_dim": d, "ms": t_k, "plain_ms": t_p,
+                                 "bound_ms": bms, "bound_by": by,
+                                 "library_ms": t_l}
+        del q, k, v, do, o, lse, delta, lq, lk, lv, lo, ldo, mask
     return rows
 
 
@@ -1331,16 +1437,21 @@ def _requests(cfg, max_new=16):
             for i, n in enumerate((5, 9, 16, 23))]
 
 
-def _serve(dev, eng, label, fc_kernel, chunk):
+def _serve(dev, eng, label, fc_kernel, chunk, kv_cache=None):
     """Serve the four requests once, every launch count set to 0 just
     before and read just after; checks 4/4 requests, finite logits, no
     leaked page and that every projection and layer went through the
-    kernels.  Returns (results, session, launch counts, the FC kernel's
-    launches by kernel and rows: 4 on a decode step, 4 * chunk on a chunked
-    one); the session's ``emitted`` holds each request's logits rows."""
+    kernels (on the full cache: no paged-attention launch, and chunk 1
+    whatever ``chunk`` asks).  Returns (results, session, launch counts,
+    the FC kernel's launches by kernel and rows: 4 on a decode step, 4 *
+    chunk on a chunked one); the session's ``emitted`` holds each
+    request's logits rows."""
     import torch
-    sess = eng.session(batch_slots=4, max_len=256,
+    sess = eng.session(batch_slots=4, max_len=256, kv_cache=kv_cache,
                        scheduler={"chunk": chunk})
+    if sess.alloc is None and sess.stats["chunk"] != 1:
+        raise AssertionError(f"{label}: a full-cache session must serve at "
+                             f"chunk 1, got {sess.stats['chunk']}")
     for r in _requests(eng.cfg):
         sess.submit(r)
     sess.emitted = {}
@@ -1380,8 +1491,9 @@ def _serve(dev, eng, label, fc_kernel, chunk):
         by_rows[kern][rows] = by_rows[kern].get(rows, 0) + n
     want = dict.fromkeys(fns, 0)
     want.update({k: sum(v.values()) for k, v in by_rows.items()})
-    want.update({"paged_attention_chunk": n_layers * pre,
-                 "paged_attention_decode": n_layers * (steps - pre)})
+    if sess.alloc is not None:        # paged: K3 / K2 once a layer and step
+        want.update({"paged_attention_chunk": n_layers * pre,
+                     "paged_attention_decode": n_layers * (steps - pre)})
     log(f"{label}: launches {json.dumps(counts)} (expected "
         f"{json.dumps(want)})")
     log(f"{label}: tokens " + json.dumps({r.rid: r.tokens for r in res}))
@@ -1392,7 +1504,7 @@ def _serve(dev, eng, label, fc_kernel, chunk):
                              "every projection and layer")
     if sess.stats["nonfinite_logit_rows"]:
         raise AssertionError(f"{label}: non-finite logits were emitted")
-    if sess.alloc.in_use:
+    if sess.alloc is not None and sess.alloc.in_use:
         raise AssertionError(f"{label}: {sess.alloc.in_use} pages leaked")
     return res, sess, counts, by_rows
 
@@ -1431,6 +1543,40 @@ def _near_tie_flips(ref, margins, got, what):
                 flips += 1
                 break
     return flips
+
+
+def _drift_flips(ref, ref_sess, got, got_sess, what):
+    """Greedy streams of two attention routes whose arithmetic differs in
+    more than sum order (the dense cache's softmax rounds p to bf16, as
+    the JAX package's does; K2 keeps p in f32): they agree, or first
+    differ at a token whose top-2 margin in ``ref`` is below 1e-2 or below
+    twice the gap between the two serves' logits rows there (drawn from
+    the same prefix), so that the measured drift alone can swap the top
+    two.  Returns (flips, the largest margin a flip had)."""
+    import numpy as np
+    flips, worst = 0, 0.0
+    by_rid = {g.rid: g for g in got}
+    for r in ref:
+        g = by_rid[r.rid]
+        j = next((j for j, (a, b) in enumerate(zip(r.tokens, g.tokens))
+                  if a != b), None)
+        if j is None:
+            continue
+        margin = ref_sess.margins[r.rid][j]
+        gap = float(np.abs(ref_sess.emitted[r.rid][j]
+                           - got_sess.emitted[r.rid][j]).max())
+        if margin >= 1e-2 and margin > 2 * gap:
+            raise AssertionError(f"{what}: rid {r.rid} token {j} differs at "
+                                 f"top-2 margin {margin:.3g}, over twice "
+                                 f"the logits gap {gap:.3g} there")
+        flips += 1
+        worst = max(worst, margin)
+    return flips, worst
+
+
+def _flips_text(flips, worst):
+    return "identical" if not flips else \
+        f"{flips} flips (largest margin {worst:.4g})"
 
 
 def _logit_drift(ref, ref_sess, got, got_sess):
@@ -1500,7 +1646,8 @@ def serve_phase(dev, layers):
     parts the two serves' logits is logged: their drift, and which ops
     give a row other bits among 32 rows than among 4.  Returns the chunk-8
     serve's launch counts, K1's launches by variant and column count, and
-    the engine (the traffic phase serves on it)."""
+    the engine (the traffic phase serves on it) and the chunk-1 serve's
+    results and session (the full-cache phase is held against them)."""
     from repro_torch import CompressionSpec, Request
     cfg = _llama(layers)
     eng = _compressed_engine(dev, cfg, CompressionSpec(mode="aida",
@@ -1526,10 +1673,31 @@ def serve_phase(dev, layers):
     if gaps["K3 chunk of 8 vs K2 a query"] != 0.0:
         raise AssertionError("serve: a query of a K3 chunk differs from K2 "
                              "on it alone")
-    del sess1, sess8
+    del sess8
     trace_serve(eng, 1)
     trace_serve(eng, 8)
-    return counts, by_rows, eng
+    return counts, by_rows, eng, (ref, sess1)
+
+
+def full_cache_phase(dev, eng, paged):
+    """Phase 9's engine serves the four requests from the full cache
+    (``kv_cache="full"``; chunk 8 asked, chunk 1 served): K1 as often as
+    the projections, layers and steps say and no paged-attention launch
+    (the dense cache's attention is plain ops, as in the JAX package);
+    tokens equal to the paged chunk-1 serve's up to flips that the two
+    routes' logits gap explains (``_drift_flips``), the drift logged.
+    Returns the launch counts."""
+    ref, sess1 = paged
+    got, sess, counts, _ = _serve(dev, eng, "serve aida full cache",
+                                  "acsr_spmv", 8, kv_cache="full")
+    flips, worst = _drift_flips(ref, sess1, got, sess,
+                                "full cache vs paged")
+    log(f"serve full cache: vs the paged chunk-1 serve, greedy tokens "
+        f"{_flips_text(flips, worst)}; logits "
+        f"max abs drift {_logit_drift(ref, sess1, got, sess):.6g} over the "
+        f"shared prefixes; stats chunk {sess.stats['chunk']}")
+    trace_serve(eng, 1, n_req=1, label="full cache", kv_cache="full")
+    return counts
 
 
 # -------------------------------------------------------- serve traffic
@@ -1774,6 +1942,12 @@ def traffic_phase(dev, eng):
         f"{prov['card']!r}")
 
 
+# the int8 / codebook4 serves' depth (of llama3-8b's 32): cut so that the
+# run stays well inside its time limit on a loaded host; their K4 / K5
+# launches and times are per layer
+FC_MODE_LAYERS = 8
+
+
 def fc_mode_serves(dev, layers):
     """Fresh int8 and codebook4 engines at full width serve the four
     requests at chunk 8 through K4 / K5, then a short traced serve each.
@@ -1795,14 +1969,14 @@ def fc_mode_serves(dev, layers):
     return counts
 
 
-def trace_serve(eng, chunk, n_req=4, label=""):
+def trace_serve(eng, chunk, n_req=4, label="", kv_cache=None):
     """Device busy share and kernel time by family over a short serve of
     the first ``n_req`` of the same requests (4 new tokens each), from
     torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sess = eng.session(batch_slots=4, max_len=256,
+    sess = eng.session(batch_slots=4, max_len=256, kv_cache=kv_cache,
                        scheduler={"chunk": chunk})
     for r in _requests(eng.cfg, max_new=4)[:n_req]:
         sess.submit(r)
@@ -2041,11 +2215,18 @@ def cross_check(dev):
 
 
 # ------------------------------------------------------------ families
-# the families served at full width, with their depth cuts (None: all)
-FAMILY_SERVES = (("qwen1.5-0.5b", None), ("h2o-danube-1.8b", 4),
-                 ("gemma2-2b", 4), ("mixtral-8x7b", 2))
-# the families trained at full width through K7 / K8, layers each
-FAMILY_TRAINS = (("gemma2-2b", 2), ("h2o-danube-1.8b", 2))
+# the families served at full width, with their depth cuts (None: all);
+# phi-3-vision serves text, as the JAX package serves it
+FAMILY_SERVES = (("qwen1.5-0.5b", 8), ("h2o-danube-1.8b", 4),
+                 ("gemma2-2b", 4), ("mixtral-8x7b", 2),
+                 ("phi-3-vision-4.2b", 4))
+# the families trained at full width through K7 / K8: (name, layers,
+# tokens a row).  hymba's 2 layers are its global layer 0 and a layer
+# windowed at 1024, so 2048 tokens make the window bite; phi-3-vision's
+# rows are 576 image rows, then 2048 text tokens; hubert's are frames
+FAMILY_TRAINS = (("gemma2-2b", 2, 2048), ("h2o-danube-1.8b", 2, 2048),
+                 ("hymba-1.5b", 2, 2048), ("phi-3-vision-4.2b", 2, 2624),
+                 ("hubert-xlarge", 4, 2048))
 FAMILY_TRAIN_STEPS = 2
 
 
@@ -2119,24 +2300,27 @@ def serve_families_phase(dev):
 
 
 def train_families_phase(dev):
-    """gemma2-2b (head dim 256, attention softcap 50) and h2o-danube-1.8b
-    (head dim 80) at full width, depth cut to FAMILY_TRAINS' layers:
-    ``trainer.run(attn_impl="flash", remat="dots")`` for FAMILY_TRAIN_STEPS
-    steps on 2 x 2048 tokens, every launch count set to 0 just before and
+    """gemma2-2b (head dim 256, attention softcap 50), h2o-danube-1.8b
+    (head dim 80), hymba-1.5b (a query group of 5 at D 64, windowed and
+    global, beside the mamba heads' plain scan), phi-3-vision-4.2b (D 96,
+    H = Hkv, image rows first) and hubert-xlarge (non-causal, D 80) at full
+    width, depth cut to FAMILY_TRAINS' layers: ``trainer.run(attn_impl=
+    "flash", remat="dots")`` for FAMILY_TRAIN_STEPS steps on 2 rows of
+    FAMILY_TRAINS' tokens, every launch count set to 0 just before and
     read just after: finite losses, K7 twice a layer and step, dq = dkv
-    once.  Returns K7 / K8's launches by head dim."""
+    once.  Returns K7 / K8's launches by model."""
     import gc
 
     import torch
     from repro_torch.data.pipeline import DataIterator, PipelineConfig
     from repro_torch.train import trainer
-    by_dim = {name: {} for name in FLASH}
-    for name, layers in FAMILY_TRAINS:
+    by_model = {name: {} for name in FLASH}
+    for name, layers, seq_len in FAMILY_TRAINS:
         gc.collect()
         torch.cuda.empty_cache()
         cfg = _family(name, layers)
         it = DataIterator(cfg, PipelineConfig(seed=0, global_batch=2,
-                                              seq_len=2048))
+                                              seq_len=seq_len))
         lines = []
         fns = _launch_counters()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2153,9 +2337,10 @@ def train_families_phase(dev):
         want.update(dict.fromkeys(FLASH, cfg.n_layers * FAMILY_TRAIN_STEPS))
         want["flash_attention_fwd"] *= 2   # forward, and "dots" recompute
         losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
-        log(f"train {name} d_model {cfg.d_model} head_dim {cfg.head_dim}, "
-            f"{cfg.n_layers} layers, B=2 T=2048: {FAMILY_TRAIN_STEPS} steps "
-            f"in {wall:.2f} s (init included), lines {lines}, peak "
+        log(f"train {name} d_model {cfg.d_model} head_dim {cfg.head_dim} "
+            f"H {cfg.n_heads}/{cfg.n_kv}, {cfg.n_layers} layers "
+            f"{cfg.layer_windows()}, B=2 T={seq_len}: {FAMILY_TRAIN_STEPS} "
+            f"steps in {wall:.2f} s (init included), lines {lines}, peak "
             f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
         log(f"train {name}: launches {json.dumps(counts)} (expected "
             f"{json.dumps(want)})")
@@ -2166,8 +2351,8 @@ def train_families_phase(dev):
                 x == x and abs(x) < float("inf") for x in losses):
             raise AssertionError(f"train {name}: non-finite losses {losses}")
         for k in FLASH:
-            by_dim[k][cfg.head_dim] = counts[k]
-    return by_dim
+            by_model[k][name] = counts[k]
+    return by_model
 
 
 def families_cross_check(dev):
@@ -2210,6 +2395,180 @@ def families_cross_check(dev):
             if rec_cpu != rec_gpu:
                 raise AssertionError(f"cross-check {name}: the card and the "
                                      "CPU reclaimed other SWA pages")
+
+
+# --------------------------------------------- hymba, hubert, the zoo
+def hymba_serve_phase(dev):
+    """hymba-1.5b at full width and depth (32 layers: windows of 1024,
+    global layers 0, 15 and 31; 25 query heads over 5 kv heads),
+    ``Engine.compress(aida 0.25)``, serves the four requests at chunk 1
+    (hymba's mamba heads are recurrent: chunk 8 asked, chunk 1 served),
+    paged (K1 nine times a layer and step, with the mamba in / out
+    projections; K2 once at a query group of 5) and from the full cache
+    (K1 only); tokens equal up to flips that the two routes' logits gap
+    explains (``_drift_flips``), every launch counted, then a profiled
+    short serve of each.  Returns both serves' launch
+    counts."""
+    import gc
+
+    import torch
+    from repro_torch import CompressionSpec, Request, get
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = _compressed_engine(dev, get("hymba-1.5b"), CompressionSpec(
+        mode="aida", density=0.25), "serve hymba-1.5b")
+    for kv in ("paged", "full"):          # cuBLAS handles, first launches
+        warm = eng.session(batch_slots=4, max_len=256, kv_cache=kv)
+        warm.submit(Request(prompt=[1, 2, 3], max_new=2, rid=0))
+        warm.run()
+    ref, sessp, cp, _ = _serve(dev, eng, "serve hymba-1.5b paged",
+                               "acsr_spmv", 8)
+    got, sessf, cf, _ = _serve(dev, eng, "serve hymba-1.5b full cache",
+                               "acsr_spmv", 8, kv_cache="full")
+    if sessp.stats["chunk"] != 1 or _fc_per_layer(eng) != 9:
+        raise AssertionError("hymba must serve at chunk 1 with 9 compressed "
+                             "projections a layer")
+    flips, worst = _drift_flips(ref, sessp, got, sessf,
+                                "hymba full vs paged")
+    log(f"serve hymba-1.5b: full cache vs paged greedy tokens: "
+        f"{_flips_text(flips, worst)}; logits "
+        f"max abs drift {_logit_drift(ref, sessp, got, sessf):.6g}")
+    trace_serve(eng, 1, n_req=1, label="hymba-1.5b paged")
+    trace_serve(eng, 1, n_req=1, label="hymba-1.5b full cache",
+                kv_cache="full")
+    del eng, sessp, sessf
+    return {"paged": cp, "full": cf}
+
+
+HUBERT_FRAMES = 2048
+
+
+def hubert_forward_phase(dev):
+    """hubert-xlarge at full width and depth (48 layers): ``forward`` over
+    2 x 2048 frames of 512 features, no grad, attention through K7
+    (non-causal, D 80; one launch a layer and nothing else), after a short
+    warm-up forward: finite logits of the expected shape, ms and peak GiB
+    logged.  Returns K7's launches."""
+    import gc
+
+    import torch
+    from repro_torch import get
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get("hubert-xlarge")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen)
+    frames = torch.randn((2, HUBERT_FRAMES, cfg.audio_in_dim), generator=gen,
+                         device=dev)
+    with torch.no_grad():
+        M.forward(cfg, params, {"frames": frames[:, :128]}, remat="none",
+                  attn_impl="flash")
+        fns = _launch_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for f in fns.values():
+            f.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = M.forward(cfg, params, {"frames": frames}, remat="none",
+                              attn_impl="flash")
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: f.launches for k, f in fns.items()}
+    want = dict.fromkeys(fns, 0)
+    want["flash_attention_fwd"] = cfg.n_layers
+    log(f"hubert-xlarge forward, {cfg.n_layers} layers, B=2 T="
+        f"{HUBERT_FRAMES} frames, K7 non-causal D {cfg.head_dim}: "
+        f"{ms:.2f} ms, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, logits "
+        f"{tuple(logits.shape)} max |x| {float(logits.abs().max()):.4g}; "
+        f"launches {json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError("hubert's forward did not launch K7 once a "
+                             "layer")
+    if tuple(logits.shape) != (2, HUBERT_FRAMES, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("hubert's forward gave non-finite logits or "
+                             "the wrong shape")
+    return counts["flash_attention_fwd"]
+
+
+def zoo_cross_check(dev):
+    """This slice's paths at ``reduced()`` size on the card against the
+    CPU from the same weights: hymba (window 32) served paged and from the
+    full cache with requests past the window (aida): the same greedy
+    tokens, or a first difference at a near-tie; hubert's and
+    phi-3-vision's training losses (flash, 2 steps) within 1e-2; and
+    h2o-danube's ring cache served on the card against its paged serve
+    with SWA reclamation (tokens equal up to near-tie flips, pages
+    reclaimed, at most window / page + 2 held)."""
+    import torch
+    from repro_torch import CompressionSpec, Engine, Request, bridge, get
+    from repro_torch import reduced
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    from repro_torch.train import trainer
+    cfg = reduced(get("hymba-1.5b"))
+    cpu = Engine(cfg, device="cpu", seed=0).compress(
+        CompressionSpec(mode="aida", density=0.25))
+    gpu = Engine(cfg, params=bridge.to_device(cpu.params, dev), device=dev)
+    for kv in ("paged", "full"):
+        out = {}
+        for where, eng in (("cpu", cpu), ("cuda", gpu)):
+            sess = eng.session(batch_slots=2, max_len=128, kv_cache=kv)
+            for i, n in enumerate((5, 40, 60)):
+                sess.submit(Request(prompt=[(7 * i + 3 * j) % cfg.vocab
+                                            for j in range(n)],
+                                    max_new=16, rid=i))
+            out[where] = (sess.run(), sess.margins)
+        flips = _near_tie_flips(out["cpu"][0], out["cpu"][1],
+                                out["cuda"][0], f"cross-check hymba {kv}")
+        log(f"cross-check: reduced hymba-1.5b aida {kv}, cuda vs cpu greedy "
+            f"tokens: "
+            f"{'identical' if not flips else f'{flips} near-tie flips'}")
+    for name, seq_len in (("hubert-xlarge", 256), ("phi-3-vision-4.2b",
+                                                   576 + 64)):
+        cfg = reduced(get(name))
+        init = trainer.init_state(cfg, torch.Generator().manual_seed(0))
+        states = {"cuda": bridge.to_device(init, dev), "cpu": init}
+        losses = {}
+        for where, state in states.items():
+            lines = []
+            trainer.run(cfg, _train_config(), DataIterator(
+                cfg, PipelineConfig(seed=1, global_batch=2,
+                                    seq_len=seq_len)), 2, state=state,
+                log_every=1, log=lines.append,
+                device=dev if where == "cuda" else "cpu")
+            losses[where] = [float(ln.split("loss=")[1].split()[0])
+                             for ln in lines]
+        diff = max(abs(a - b) for a, b in zip(losses["cpu"],
+                                              losses["cuda"]))
+        log(f"cross-check: reduced {name} flash training ({seq_len} rows), "
+            f"losses cpu {losses['cpu']} cuda {losses['cuda']}, max diff "
+            f"{diff:.2e}")
+        if diff > 1e-2:
+            raise AssertionError(f"{name}: card and CPU losses disagree")
+    cfg = reduced(get("h2o-danube-1.8b"))
+    eng = Engine(cfg, device=dev, seed=0)
+    res = {}
+    for kv in ("full", "paged"):
+        sess = eng.session(batch_slots=1, max_len=80, kv_cache=kv,
+                           page_size=8)
+        sess.submit(Request(prompt=[1, 2, 3], max_new=56, rid=0))
+        res[kv] = (sess.run(), sess)
+    (ring, rsess), (paged, psess) = res["full"], res["paged"]
+    flips = _near_tie_flips(ring, rsess.margins, paged,
+                            "h2o-danube ring vs paged")
+    slots = rsess.state["layers"]["kv"].k.shape[3]
+    log(f"cross-check: reduced h2o-danube-1.8b on the card, ring cache "
+        f"({slots} slots) vs paged: greedy tokens "
+        f"{'identical' if not flips else f'{flips} near-tie flips'}; pages "
+        f"reclaimed {psess.stats['pages_reclaimed_swa']}, peak "
+        f"{psess.stats['pages_peak']}")
+    if slots != cfg.window or psess.stats["pages_reclaimed_swa"] == 0 or \
+            psess.stats["pages_peak"] > cfg.window // 8 + 2 or \
+            psess.alloc.in_use:
+        raise AssertionError("h2o-danube: the ring cache or the SWA "
+                             "reclamation is off")
 
 
 # --------------------------------------------------------------- rwkv6
@@ -2626,14 +2985,15 @@ def main(argv=None) -> int:
         log(smi)
         return 0
     errs, times = {}, {}
-    k1_errs, k1_times, k1_rwkv6 = _timed("K1", k1_phase, dev, flush)
+    k1_errs, k1_times, k1_models = _timed("K1", k1_phase, dev, flush)
     errs.update(k1_errs)
     times.update(k1_times)
     _timed("K6 kernels a call", k6_kernels_a_call, dev)
-    errs["paged_attention_decode"], times["paged_attention_decode"] = \
-        _timed("K2", k2_phase, dev, flush)
-    errs["paged_attention_chunk"], times["paged_attention_chunk"] = \
-        _timed("K3", k3_phase, dev, flush)
+    model_times = {}
+    for name, label, phase in (("paged_attention_decode", "K2", k2_phase),
+                               ("paged_attention_chunk", "K3", k3_phase)):
+        errs[name], times[name], model_times[name] = _timed(label, phase,
+                                                            dev, flush)
     fc_errs, fc_times = _timed("K4/K5", fc_phase, dev, flush)
     for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
         errs[name] = fc_errs[mode]
@@ -2649,26 +3009,52 @@ def main(argv=None) -> int:
         _timed("K6", k6_phase, dev, flush)
     del flush
     layers = args.layers or 32
-    launches, by_rows, eng = _timed("serve aida", serve_phase, dev, layers)
+    launches, by_rows, eng, paged1 = _timed("serve aida", serve_phase, dev,
+                                            layers)
+    slice_serves = [_timed("serve full cache", full_cache_phase, dev, eng,
+                           paged1)]
+    del paged1
     _timed("serve traffic", traffic_phase, dev, eng)
     del eng
     by_rows.update(_timed("serve int8 / codebook4", fc_mode_serves, dev,
-                          layers))
+                          min(layers, FC_MODE_LAYERS)))
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())
     launches["lut_matmul"] = sum(by_rows["lut_matmul"].values())
-    _timed("serve families", serve_families_phase, dev)
+    family = _timed("serve families", serve_families_phase, dev)
+    hymba = _timed("serve hymba", hymba_serve_phase, dev)
+    # K1-K3 launches: phase 9's chunk-8 serve and this slice's serves (the
+    # full cache, hymba paged and full, phi-3-vision at chunk 1 and 8)
+    slice_serves += [hymba["paged"], hymba["full"],
+                     *family["phi-3-vision-4.2b"].values()]
+    k1_models["hymba-1.5b"]["launches"] = sum(
+        hymba[kv]["acsr_spmv_gather"] for kv in hymba)
+    phase9 = dict(launches)
+    for name in ("acsr_spmv_gather", "acsr_spmv_wide",
+                 "paged_attention_decode", "paged_attention_chunk"):
+        launches[name] += sum(c[name] for c in slice_serves)
+    model_launches = {
+        ("paged_attention_decode", "hymba-1.5b"):
+            hymba["paged"]["paged_attention_decode"],
+        ("paged_attention_decode", "phi-3-vision-4.2b"): sum(
+            c["paged_attention_decode"]
+            for c in family["phi-3-vision-4.2b"].values()),
+        ("paged_attention_chunk", "phi-3-vision-4.2b"):
+            family["phi-3-vision-4.2b"][8]["paged_attention_chunk"]}
     train_counts = _timed("train", train_phase, dev, TRAIN_LAYERS)
     flash_launches = _timed("train families", train_families_phase, dev)
+    flash_launches["flash_attention_fwd"]["hubert-xlarge"] += _timed(
+        "hubert forward", hubert_forward_phase, dev)
     for name in FLASH:
-        flash_launches[name][128] = train_counts[name]
+        flash_launches[name]["llama3-8b"] = train_counts[name]
         launches[name] = sum(flash_launches[name].values())
     _timed("cross-check", cross_check, dev)
     _timed("train cross-check", train_cross_check, dev)
     _timed("families cross-check", families_cross_check, dev)
+    _timed("zoo cross-check", zoo_cross_check, dev)
     eng, launches["rwkv6_scan"] = _timed("rwkv6 forward",
                                          rwkv6_forward_phase, dev)
-    k1_rwkv6["launches"] = _timed("rwkv6 serve", rwkv6_serve_phase, dev,
-                                  eng)
+    k1_models["rwkv6-7b"]["launches"] = _timed(
+        "rwkv6 serve", rwkv6_serve_phase, dev, eng)
     del eng
     _timed("rwkv6 cross-check", rwkv6_cross_check, dev)
     launches["lut_product_matmul"] = sum(k6_launches.values())
@@ -2682,17 +3068,22 @@ def main(argv=None) -> int:
         if name in by_rows:   # FC kernels: per layer, at the main path's rows
             row.update(_by_shape(times[name], by_rows[name]))
         elif name.startswith("paged_"):   # K2, K3: by context
-            row.update(_by_context(times[name], launches[name]))
-        elif name in FLASH:               # K7, K8: by head dim
+            row.update(_by_context(times[name], phase9[name]))
+            row["shapes"] += [
+                {"model": m, "ctx": ctx,
+                 "launches": model_launches.get((name, m), 0)
+                 if ctx == 37 else 0, **t}
+                for (m, ctx), t in sorted(model_times[name].items())]
+        elif name in FLASH:               # K7, K8: by model
             row.update(_by_shape(times[name], flash_launches[name],
-                                 "head_dim"))
+                                 "model"))
         else:
             row.update(times[name])
-        if name == "acsr_spmv_gather":   # and per rwkv6-7b layer, 4 columns
-            for s in row["shapes"]:
+        if name == "acsr_spmv_gather":   # and per rwkv6-7b and hymba-1.5b
+            for s in row["shapes"]:       # layer, 4 columns
                 s["model"] = "llama3-8b"
-            row["shapes"].append({"rows": 4, "model": "rwkv6-7b",
-                                  **k1_rwkv6})
+            row["shapes"] += [{"rows": 4, "model": m, **t}
+                              for m, t in k1_models.items()]
         kernels.append(row)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

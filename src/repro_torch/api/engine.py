@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from repro_torch.api import compress as compress_mod
-from repro_torch.api.session import RecurrentSession, Session
+from repro_torch.api.session import Session
 from repro_torch.api.spec import CompressionSpec, Request, Result
 from repro_torch.configs.base import ArchConfig
 
@@ -83,18 +83,19 @@ class Engine:
                 kv_dtype: Optional[str] = None, scheduler=None,
                 obs=None) -> Session:
         """A continuous-batching serving session on the engine's device.
-        ``scheduler``: a `sched.SchedConfig` (or dict / policy name):
-        policy, chunk, prefix cache.  ``seed`` seeds the sampling draws of
+        ``kv_cache``: None / "auto" (paged wherever there is attention),
+        "paged" or "full" (the dense per-slot cache).  ``scheduler``: a
+        `sched.SchedConfig` (or dict / policy name): policy, chunk, prefix
+        cache.  ``seed`` seeds the sampling draws of
         requests with a temperature.  ``obs``: an `obs.Tracer` for the
         tick-clock event stream (None: untraced)."""
         if self.cfg is None:
             raise ValueError("serving needs an ArchConfig")
-        cls = RecurrentSession if self.cfg.family == "rwkv6" else Session
-        return cls(self.cfg, self.params, batch_slots=batch_slots,
-                   max_len=max_len, device=self.device, seed=seed,
-                   kv_cache=kv_cache, page_size=page_size,
-                   kv_pool_pages=kv_pool_pages, kv_dtype=kv_dtype,
-                   scheduler=scheduler, obs=obs)
+        return Session(self.cfg, self.params, batch_slots=batch_slots,
+                       max_len=max_len, device=self.device, seed=seed,
+                       kv_cache=kv_cache, page_size=page_size,
+                       kv_pool_pages=kv_pool_pages, kv_dtype=kv_dtype,
+                       scheduler=scheduler, obs=obs)
 
     def serve(self, requests: Sequence[Union[Request, List[int]]], *,
               batch_slots: int = 4, max_len: int = 256,

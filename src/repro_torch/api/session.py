@@ -1,6 +1,7 @@
 """Serving session: continuous batching over a fixed-slot decode batch and
-a paged KV pool (attention families) or the per-slot recurrent state
-(rwkv6, which has nothing to page), driven by timed traffic.
+a paged KV pool (attention families, by default), a dense per-slot KV
+cache (``kv_cache="full"``) or the per-slot recurrent state (rwkv6, which
+has nothing to page), driven by timed traffic.
 
 Requests occupy slots; a finished slot is refilled from the scheduler's
 queue without stopping the batch.  The scheduler (`repro_torch.sched`)
@@ -30,12 +31,15 @@ same tokens on the card and on the CPU.  ``obs=`` takes an
 ``obs.Tracer``: the tick-clock event stream of every seam, and wall
 phases around each step.
 
-The rwkv6 family serves through ``RecurrentSession`` with its per-slot
-state whatever ``kv_cache`` asks, as in the JAX package: no allocator, no
-page table and no prefix cache, chunk 1 (its time mix is recurrent), and
-a slot's state zeroed when a request is admitted to it.  Not ported yet:
-the full cache of attention families, mesh serving, and the
-disaggregated and resilience layers.
+Without pages (the full cache, and rwkv6 whatever ``kv_cache`` asks, as
+in the JAX package) there is no allocator, no page table and no prefix
+cache, admission always fits, prompts feed at chunk 1, and on admission a
+slot's slot-shaped state is zeroed and its cache positions read as empty
+(-1).  hymba's mamba state is zeroed on admission under either cache.  An
+encoder (no decode step) is refused.  One difference from the JAX
+package: hymba refuses the prefix cache, since attached prompt pages never
+pass through its mamba heads, whose state would miss them.  Not ported
+yet: mesh serving, and the disaggregated and resilience layers.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from repro_torch import obs as obs_mod
 from repro_torch import sched as schd
 from repro_torch.api.spec import Request, Result
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import kvcache as kvc
 from repro_torch.models import model as M
 
 KV_CACHE_DEFAULT = "auto"
@@ -86,23 +91,35 @@ class Session:
                  kv_cache: Optional[str] = None, page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, scheduler=None, obs=None):
+        if not cfg.has_decode:
+            raise ValueError(f"{cfg.name} is an encoder: it has no decode "
+                             "step to serve")
         self.cfg, self.params = cfg, params
         self.device = torch.device(device)
         self.slots = batch_slots
         self.max_len = max_len
         self.page_size = page_size
         self.kv_dtype = kv_dtype or KV_DTYPE_DEFAULT
+        self.kv_cache = "full" if cfg.family == "rwkv6" \
+            else resolve_kv_cache(kv_cache, cfg)
         self.sched = schd.Scheduler(schd.SchedConfig.coerce(scheduler))
-        # chunked prefill needs attention-only token mixing; elsewhere
-        # prompts feed token by token
-        self.chunk = self.sched.cfg.chunk \
-            if schd.supports_chunked_prefill(cfg) else 1
+        if self.sched.cfg.prefix_cache and self.kv_cache == "paged" \
+                and cfg.family == "hymba":
+            raise ValueError(
+                f"{cfg.name}: no prefix cache for a family with per-token "
+                "recurrent state: attached prompt pages are never fed "
+                "through its mamba heads, so their state would miss them")
+        # chunked prefill needs pages to write into and attention-only
+        # token mixing; elsewhere prompts feed token by token
+        self.chunk = self.sched.cfg.chunk if (
+            self.kv_cache == "paged"
+            and schd.supports_chunked_prefill(cfg)) else 1
         self.stats = {"steps": 0, "prefill_steps": 0, "fills": 0,
                       "preemptions": 0, "chunk": self.chunk,
                       "page_allocs": 0, "pages_in_use": 0, "pages_peak": 0,
                       "pages_reclaimed_swa": 0, "prefix_hits": 0,
                       "prefix_pages_reused": 0, "nonfinite_logit_rows": 0}
-        self._init_state(resolve_kv_cache(kv_cache, cfg), kv_pool_pages)
+        self._init_state(kv_pool_pages)
         self.slot_pos = [0] * batch_slots
         self.slot_entry: List[Optional[schd.SchedEntry]] = \
             [None] * batch_slots
@@ -125,11 +142,16 @@ class Session:
         if self.tracer.enabled:
             self._wire_obs()
 
-    def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
-        if kv_cache != "paged":
-            raise NotImplementedError(
-                f"kv_cache={kv_cache!r}: the port serves attention families "
-                "from the paged cache; their full cache is not ported yet")
+    def _init_state(self, kv_pool_pages: Optional[int]):
+        if self.kv_cache == "full":
+            self.state = M.init_decode_state(self.cfg, self.slots,
+                                             self.max_len, kv_cache="full",
+                                             device=self.device)
+            self.alloc = self.prefix = self.host_table = None
+            self._swa_window = None
+            return
+        if self.kv_cache != "paged":
+            raise ValueError(f"unknown kv_cache {self.kv_cache!r}")
         self.state = M.init_decode_state(
             self.cfg, self.slots, self.max_len, kv_cache="paged",
             page_size=self.page_size, kv_pool_pages=kv_pool_pages,
@@ -283,6 +305,8 @@ class Session:
         return pids
 
     def _fits(self, entry: schd.SchedEntry) -> bool:
+        if self.alloc is None:
+            return True            # no pages: every slot is pre-allocated
         hits = self._prefix_hit_pids(entry)
         avail = self.alloc.available
         if self.prefix is not None:
@@ -352,10 +376,18 @@ class Session:
         self.stats["pages_in_use"] = self.alloc.in_use
 
     def _reset_slot_state(self, i: int):
-        """Release the slot's pages and rewind its position.  Stale page
-        contents are harmless: the position mask never reaches unwritten
-        slots and int8 scales reset on re-allocation."""
+        """Release the slot's pages, zero its slot-shaped state ([L, B,
+        ...]: a dense cache, hymba's mamba state, rwkv6's state) with a
+        dense cache's positions at -1 (never written), and rewind its
+        position.  Stale page contents are harmless: the position mask
+        never reaches unwritten slots and int8 scales reset on
+        re-allocation."""
         self._release_slot_pages(i)
+        for leaf in _slot_leaves(self.state["layers"]):
+            leaf[:, i] = 0
+        kv = self.state["layers"].get("kv")
+        if isinstance(kv, kvc.KVCache):
+            kv.pos[:, i] = -1
         self.state["pos"][i] = 0
         self.slot_pos[i] = 0
 
@@ -363,6 +395,8 @@ class Session:
     def _release_slot_pages(self, i: int) -> None:
         """Drop slot ``i``'s hold on its pages (request done, slot reset,
         preemption); shared prefix pages just lose this slot's ref."""
+        if self.alloc is None:
+            return
         pages = [int(p) for p in self.host_table[i] if p >= 0]
         if not pages:
             return
@@ -392,6 +426,8 @@ class Session:
         next ``counts[i]`` tokens land in; fresh int8 pages get their
         scales cleared.  Transactional: on OutOfPages this round's grants
         are rolled back."""
+        if self.alloc is None:
+            return
         npp = self.host_table.shape[1]
         events = []
         try:
@@ -640,30 +676,15 @@ class Session:
             self._release_slot_pages(i)
 
 
-class RecurrentSession(Session):
-    """rwkv6: one recurrent state per slot, the same size at every length,
-    so nothing to page whatever ``kv_cache`` asks: slots are pre-allocated,
-    admission always fits, a slot's state is zeroed on admission and there
-    is no prefix cache."""
-
-    def _init_state(self, kv_cache: str, kv_pool_pages: Optional[int]):
-        self.state = M.init_decode_state(self.cfg, self.slots, self.max_len,
-                                         device=self.device)
-        self.alloc = None
-        self.prefix = None
-        self._swa_window = None
-
-    def _fits(self, entry: schd.SchedEntry) -> bool:
-        return True
-
-    def _reset_slot_state(self, i: int):
-        for leaf in self.state["layers"].values():        # [L, B, ...]
-            leaf[:, i] = 0
-        self.state["pos"][i] = 0
-        self.slot_pos[i] = 0
-
-    def _release_slot_pages(self, i: int) -> None:
-        pass
-
-    def _ensure_pages(self, counts: List[int]) -> None:
-        pass
+def _slot_leaves(tree):
+    """The [L, B, ...] tensors of a decode state's layers: everything but
+    a page pool, whose pages no slot owns."""
+    if isinstance(tree, kvs.PagedKV):
+        return
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _slot_leaves(v)
+    elif isinstance(tree, kvc.KVCache):
+        yield from tree
+    else:
+        yield tree

@@ -5,15 +5,18 @@ turned into a numpy array (``jax.tree.map(np.asarray, tree)`` keeps the
 reference's containers and swaps their arrays); this module reads those
 containers by their field names and never imports the reference.
 
-Covered: raw param dicts (the dense family's, gemma2's post-norms
-``ln1p`` / ``ln2p``, the MoE family's ``moe`` router and [L, E, d, f]
-expert stacks, and the rwkv6 family's ``tm`` / ``cm`` trees), ``CompressedFC`` in all five modes (int8's
-``QTensor`` codes and scales, codebook4's packed codes and centroids),
-stacked or single ``BlockedACSR`` (int16 or int32 col_idx, uint8 codes or
-f32 / bf16 values, [L, 16] centroids), the paged decode state
-(``PagedKV`` pools, ``pos``, ``page_table``), the rwkv6 decode state
-(``tm_prev``, ``cm_prev``, ``S``, ``pos``) and the training state
-(``TrainState(params, OptState(step, m, v))``).
+Covered: raw param dicts of every family (the dense family's, gemma2's
+post-norms ``ln1p`` / ``ln2p``, layer norms' ``scale`` / ``bias``, the
+MoE family's ``moe`` router and [L, E, d, f] expert stacks, hymba's
+``mamba`` / ``ln_ssm`` subtrees, the rwkv6 family's ``tm`` / ``cm`` trees
+and an audio model's ``frontend``), ``CompressedFC`` in all five modes
+(int8's ``QTensor`` codes and scales, codebook4's packed codes and
+centroids), stacked or single ``BlockedACSR`` (int16 or int32 col_idx,
+uint8 codes or f32 / bf16 values, [L, 16] centroids), the decode states
+(``PagedKV`` pools, dense ``KVCache`` (k, v, pos), hymba's ``mamba``
+conv / h, rwkv6's ``tm_prev`` / ``cm_prev`` / ``S``, ``pos``,
+``page_table``) and the training state (``TrainState(params, OptState(
+step, m, v))``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.core.quant import QTensor
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.kernels.acsr_spmv import BlockedACSR
 from repro_torch.kvstore.pool import PagedKV
+from repro_torch.models.kvcache import KVCache
 from repro_torch.optim.adamw import OptState
 from repro_torch.train.trainer import TrainState
 
@@ -79,6 +83,9 @@ def from_reference(tree: Any, device=None) -> Any:
         return PagedKV(*(None if a is None else tensor(a, device)
                          for a in (tree.k_pages, tree.v_pages, tree.k_scale,
                                    tree.v_scale)))
+    if name == "KVCache":
+        return KVCache(*(tensor(a, device) for a in (tree.k, tree.v,
+                                                      tree.pos)))
     if isinstance(tree, dict):
         return {k: from_reference(v, device) for k, v in tree.items()}
     if tree is None:
@@ -108,7 +115,7 @@ def to_device(tree: Any, device) -> Any:
                            tree.block_rows, tree.nnz,
                            to_device(tree.centroids, device),
                            to_device(tree.chunk_off, device))
-    if isinstance(tree, (PagedKV, OptState, TrainState)):
+    if isinstance(tree, (PagedKV, KVCache, OptState, TrainState)):
         return type(tree)(*(to_device(a, device) for a in tree))
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}

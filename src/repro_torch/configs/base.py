@@ -63,6 +63,21 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return ((self.vocab + 127) // 128) * 128
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """May this arch run long_500k decode? True for SSM/hybrid and
+        bounded-window (SWA) attention; gemma2's alternating stack counts
+        (local layers ring-cached; sparse global layers sequence-sharded)."""
+        if self.family in ("rwkv6", "hymba"):
+            return True
+        if self.family == "encoder":
+            return False
+        return self.window > 0  # SWA (incl. gemma2 local/global)
+
+    @property
+    def has_decode(self) -> bool:
+        return self.family != "encoder"
+
     def layer_windows(self) -> Tuple[int, ...]:
         """Static per-layer window vector."""
         out = []
@@ -91,7 +106,20 @@ class ArchConfig:
             else:
                 ffn = (3 if self.gated_mlp else 2) * d * f
             per = attn + ffn
+            if self.family == "hymba":
+                per += 2 * d * 2 * d  # mamba in/out projections (approx)
         return emb + L * per
+
+    def active_params_count(self) -> int:
+        """Active (per-token) params — MoE counts top_k experts only."""
+        if not self.moe:
+            return self.params_count()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        dh, h, hkv = self.head_dim, self.n_heads, self.n_kv
+        attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
+        ffn = self.moe.top_k * 3 * d * f
+        emb = self.vocab_padded * d * (1 if self.tie_embeddings else 2)
+        return emb + L * (attn + ffn)
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -103,6 +131,11 @@ def get(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         import repro_torch.configs  # noqa: F401  (populates registry)
     return _REGISTRY[name]
+
+
+def names():
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)
 
 
 def reduced(cfg: ArchConfig, n_layers: int = 2, d_model: int = 128,

@@ -6,7 +6,9 @@ recurrence and the fully-coded LUT product.
 ``torch.autograd.Function``; ``impl="ref"`` is the plain masked softmax,
 differentiated by autograd.  ``rwkv6`` runs K9 and ``lut_product_matmul``
 K6.  CPU tensors take the kernels' plain versions inside the same
-functions; nothing falls back from the card.
+functions; nothing falls back from the card.  The Mamba scan and the two
+decode steps have no kernel in the JAX package (a ``lax.scan`` and plain
+``jnp``), so they are plain tensor ops here on every device.
 """
 from __future__ import annotations
 
@@ -86,6 +88,22 @@ def rwkv6_decode_step(S: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     kv = k[..., :, None] * v[..., None, :]
     o = torch.einsum("bhkv,bhk->bhv", S + u[None, :, :, None] * kv, r)
     return w[..., :, None] * S + kv, o
+
+
+def mamba(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+          B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Selective SSM over a whole sequence (differentiable): x, dt [B, T,
+    D], A [D, N], B, C [B, T, N] -> y [B, T, D] f32."""
+    return ref.mamba_ref(x, dt, A, B, C)
+
+
+def mamba_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                      A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
+    """One SSM token: h [B, D, N]; x, dt [B, D]; B, C [B, N] -> (h', y
+    [B, D])."""
+    decay = torch.exp(dt[..., None] * A[None])            # [B, D, N]
+    h = decay * h + (dt * x)[..., None] * B[:, None, :]
+    return h, torch.einsum("bdn,bn->bd", h, C)
 
 
 def lut_product_matmul(x_codes: torch.Tensor, codes_packed: torch.Tensor,

@@ -312,3 +312,27 @@ def lut_product_matmul_ref(x_codes: torch.Tensor, codes_packed: torch.Tensor,
     if not out:
         return torch.zeros((b, 0), dtype=torch.float32, device=lut.device)
     return torch.cat(out, dim=1)
+
+
+def mamba_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """Selective-SSM (Mamba) scan, sequential over T in f32, as the JAX
+    package's ``mamba_ref`` (which no kernel replaces there either: the
+    card runs this loop of plain ops too).
+
+    x, dt [B, T, D], A [D, N] (negative), Bm, Cm [B, T, N] -> y [B, T, D]:
+    h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + dt_t[d] x_t[d] B_t[n],
+    y_t[d] = sum_n h_t[d, n] C_t[n], h_0 = 0.  Differentiable by
+    autograd."""
+    x, dt, Bm, Cm = (t.float() for t in (x, dt, Bm, Cm))
+    b, t, d = x.shape
+    h = torch.zeros((b,) + tuple(A.shape), dtype=torch.float32,
+                    device=x.device)
+    out = []
+    for i in range(t):
+        decay = torch.exp(dt[:, i, :, None] * A)          # [B, D, N]
+        h = decay * h + (dt[:, i] * x[:, i])[:, :, None] * Bm[:, i, None, :]
+        out.append((h @ Cm[:, i, :, None])[..., 0])
+    if not out:
+        return torch.zeros((b, 0, d), dtype=torch.float32, device=x.device)
+    return torch.stack(out, dim=1)

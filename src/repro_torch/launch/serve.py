@@ -41,9 +41,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--kv-cache", default=None,
-                    choices=[None, "auto", "paged"],
+                    choices=[None, "auto", "full", "paged"],
                     help="None/auto = the page-pool KV cache wherever the "
-                         "arch has attention")
+                         "arch has attention; full = the dense per-slot "
+                         "cache (chunk 1)")
     ap.add_argument("--workload", default="uniform", choices=list(PRESETS),
                     help="request-mix preset (sched.workload): prompt "
                          "lengths, max_new, arrival process")
@@ -166,6 +167,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.exit(2, f"[serve] {e}\n")
 
     cfg = get(args.arch) if args.full_size else reduced(get(args.arch))
+    if not cfg.has_decode:
+        ap.exit(2, f"[serve] {cfg.name} is an encoder: it has no decode "
+                "step to serve\n")
     print(f"[serve] {cfg.name}: ~{cfg.params_count()/1e6:.1f}M params "
           f"on {device}")
     eng = Engine(cfg, device=device)

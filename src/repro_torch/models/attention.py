@@ -1,5 +1,6 @@
 """GQA attention: training / prefill self-attention (einsum, chunked or
-flash) and one-token decode against the paged KV pool."""
+flash; causal or not) and one-token decode against the paged KV pool or
+a dense KV cache (full or ring)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +10,7 @@ import torch
 from repro_torch import kvstore as kvs
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models import kvcache as kvc
 from repro_torch.models.layers import (COMPUTE_DTYPE, dense, dense_init,
                                        rope, softcap)
 
@@ -123,6 +125,32 @@ def attn_apply(p, x, positions, *, n_heads: int, n_kv: int, d_head: int,
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     return dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"])
+
+
+def decode_attend(cache: kvc.KVCache, q, k, v, cur_pos, *, window: int,
+                  ring: bool = False, cap: Optional[float] = None,
+                  scale: float = 1.0):
+    """Write the token's k/v into its slot of the dense cache (in place),
+    then the masked softmax over the slots (:func:`_core`, plain ops on
+    every device, as in the JAX package).  q/k/v are [B, H(kv), 1, Dh]."""
+    cache = kvc.update(cache, k, v, cur_pos, ring=ring)
+    mask = kvc.attention_mask(cache, cur_pos, window)       # [B, S]
+    o = _core(q, cache.k, cache.v, mask[:, None, None, None, :], cap, scale)
+    return cache, o
+
+
+def attn_decode(p, cache: kvc.KVCache, x, cur_pos, *, n_heads: int,
+                n_kv: int, d_head: int, window: int, ring: bool = False,
+                cap: Optional[float] = None,
+                theta: Optional[float] = 10000.0,
+                scale: Optional[float] = None):
+    """One-token decode against a dense cache. x [B, 1, D], cur_pos [B]
+    absolute positions."""
+    scale = (d_head ** -0.5) if scale is None else scale
+    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, cur_pos[:, None], theta)
+    cache, o = decode_attend(cache, q, k, v, cur_pos, window=window,
+                             ring=ring, cap=cap, scale=scale)
+    return cache, dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"])
 
 
 def decode_attend_paged(pool: kvs.PagedKV, table, q, k, v, cur_pos, *,

@@ -66,6 +66,21 @@ def rms_norm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
     return y.to(COMPUTE_DTYPE)
 
 
+def layer_norm_init(d: int, lead=(), device=None):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32,
+                                device=device),
+            "bias": torch.zeros(tuple(lead) + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(COMPUTE_DTYPE)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding, half split. x [B, H, T, D], positions [B, T]."""

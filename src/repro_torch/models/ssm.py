@@ -1,9 +1,10 @@
-"""RWKV6 (Finch) time mix and channel mix, for a whole sequence and for one
-decode token.  The sequence path runs the WKV recurrence through
-``ops.rwkv6`` (K9 on the card); a decode token carries O(1) state (the
-previous token's normed input and the [H, dh, dh] WKV state).
-
-Mamba (hymba's SSM heads) comes with the hymba slice.
+"""Recurrent mixers: RWKV6 (Finch) time mix and channel mix, and Mamba
+(hymba's SSM heads), for a whole sequence and for one decode token.  The
+RWKV6 sequence path runs the WKV recurrence through ``ops.rwkv6`` (K9 on
+the card); Mamba's selective scan is plain ops (``ops.mamba``), as in the
+JAX package.  A decode token carries O(1) state: for RWKV6 the previous
+token's normed input and the [H, dh, dh] WKV state, for Mamba the last
+K - 1 conv inputs and the [D, N] SSM state.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import COMPUTE_DTYPE, dense, dense_init
+from repro_torch.models.layers import (COMPUTE_DTYPE, _bf16_matmul, dense,
+                                       dense_init)
 
 
 def rwkv6_time_mix_init(gen: torch.Generator, d: int, d_head: int = 64,
@@ -145,3 +147,76 @@ def rwkv6_channel_mix_decode(p: Dict, prev: torch.Tensor, x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token, x [B, 1, D] -> (new prev [B, D], out [B, 1, D])."""
     return x[:, 0, :], _channel(p, x, prev[:, None, :])
+
+
+# ------------------------------------------------------------------ Mamba
+def mamba_init(gen: torch.Generator, d: int, state: int = 16,
+               conv_k: int = 4, dt_rank: int = None, lead=()) -> Dict:
+    dt_rank = max(1, d // 16) if dt_rank is None else dt_rank
+    lead = tuple(lead)
+    dev = gen.device
+    a = torch.arange(1, state + 1, dtype=torch.float32, device=dev)
+    return {
+        "in_proj": dense_init(gen, d, 2 * d, lead=lead),        # x, z
+        "conv": torch.randn(lead + (conv_k, d), generator=gen,
+                            device=dev).mul_(0.2),
+        "x_db": dense_init(gen, d, dt_rank + 2 * state, lead=lead),
+        "dt_proj": dense_init(gen, dt_rank, d, scale=dt_rank ** -0.5,
+                              lead=lead),
+        # softplus(-3) ~ 0.05
+        "dt_bias": torch.full(lead + (d,), -3.0, device=dev),
+        "A_log": torch.log(a).expand(lead + (d, state)).clone(),
+        "D": torch.ones(lead + (d,), device=dev),
+        "out_proj": dense_init(gen, d, d, lead=lead),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, x [B, T, D], w [K, D], summed tap by tap
+    in the JAX package's order."""
+    k, t = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    return sum(xp[:, i:i + t, :] * w[i][None, None, :] for i in range(k))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` forms it: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _ssm_inputs(p: Dict, xi: torch.Tensor, state: int):
+    """xi (post-conv, f32) -> (dt, A, B, C): the x_db product as a bf16
+    product rounded to bf16, dt = softplus(dt_in @ dt_proj + dt_bias) in
+    f32."""
+    dt_rank = p["dt_proj"].shape[-2]
+    dbc = _bf16_matmul(xi, p["x_db"]).to(COMPUTE_DTYPE).float()
+    dt_in, bm, cm = torch.split(dbc, [dt_rank, state, state], dim=-1)
+    dt = _softplus(dt_in @ p["dt_proj"] + p["dt_bias"])
+    return dt, -torch.exp(p["A_log"]), bm, cm
+
+
+def mamba_apply(p: Dict, x: torch.Tensor, *, state: int = 16
+                ) -> torch.Tensor:
+    """x [B, T, D] bf16 -> y [B, T, D] bf16 (training / prefill)."""
+    xz = dense(x, p["in_proj"]).float()
+    xi, z = xz.chunk(2, dim=-1)
+    xi = torch.nn.functional.silu(_causal_conv(xi, p["conv"]))
+    dt, a, bm, cm = _ssm_inputs(p, xi, state)
+    y = ops.mamba(xi, dt, a, bm, cm) + xi * p["D"]
+    y = y * torch.nn.functional.silu(z)
+    return dense(y.to(COMPUTE_DTYPE), p["out_proj"])
+
+
+def mamba_decode(p: Dict, st: Dict, x: torch.Tensor, *, state: int = 16
+                 ) -> Tuple[Dict, torch.Tensor]:
+    """One token, x [B, 1, D]; st {"conv" [B, K - 1, D], "h" [B, D, N]}
+    (f32) -> (new state, out [B, 1, D])."""
+    xz = dense(x, p["in_proj"]).float()
+    xi, z = xz[:, 0].chunk(2, dim=-1)                      # [B, D]
+    conv_buf = torch.cat([st["conv"], xi[:, None, :]], dim=1)
+    xi = torch.nn.functional.silu((conv_buf * p["conv"][None]).sum(dim=1))
+    dt, a, bm, cm = _ssm_inputs(p, xi, state)
+    h, y = ops.mamba_decode_step(st["h"], xi, dt, a, bm, cm)
+    y = (y + xi * p["D"]) * torch.nn.functional.silu(z)
+    out = dense(y[:, None, :].to(COMPUTE_DTYPE), p["out_proj"])
+    return {"conv": conv_buf[:, 1:], "h": h}, out

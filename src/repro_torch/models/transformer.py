@@ -1,7 +1,8 @@
-"""Blocks of the dense (rms-norm, with or without gemma2's post-norms),
-moe and rwkv6 families and the layer stack, for training / prefill and
-for decode (paged for the attention families, the recurrent state for
-rwkv6).
+"""Blocks of every family (dense with or without gemma2's post-norms,
+moe, hymba's parallel attention + mamba heads, rwkv6 and the non-causal
+layer-norm encoder) and the layer stack, for training / prefill and for
+decode (paged or dense KV cache for the attention families, the recurrent
+state for rwkv6 and hymba's mamba heads).
 
 Params and decode state are stacked over layers ([L, ...]); the JAX
 package's scan over layers is a Python loop over layer views (indexing,
@@ -20,42 +21,57 @@ from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_fc import CompressedFC
 from repro_torch.models import attention as attn
+from repro_torch.models import kvcache as kvc
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import (COMPUTE_DTYPE, mlp, mlp_init,
+from repro_torch.models.layers import (COMPUTE_DTYPE, layer_norm,
+                                       layer_norm_init, mlp, mlp_init,
                                        rms_norm, rms_norm_init)
 
 REMAT = ("none", "dots", "full")
+FAMILIES = ("dense", "moe", "hymba", "rwkv6", "encoder")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "rwkv6") or cfg.norm != "rms":
+    if cfg.family not in FAMILIES or cfg.norm not in ("rms", "layer"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, moe and rwkv6 rms-norm "
-            "families so far; the others land with a later slice")
+            f"{cfg.name}: family {cfg.family!r} with norm {cfg.norm!r}; the "
+            f"port runs the families {FAMILIES} with rms or layer norm")
+
+
+def _norm(cfg: ArchConfig):
+    return rms_norm if cfg.norm == "rms" else layer_norm
+
+
+def _norm_init(cfg: ArchConfig, d: int, lead=(), device=None):
+    init = rms_norm_init if cfg.norm == "rms" else layer_norm_init
+    return init(d, lead, device)
 
 
 def layer_init(cfg: ArchConfig, gen: torch.Generator, lead=()) -> Dict:
     """One layer's params (``lead=(L,)`` draws the whole stack at once)."""
     _check_family(cfg)
-    d, f = cfg.d_model, cfg.d_ff
+    d, f, dev = cfg.d_model, cfg.d_ff, gen.device
     if cfg.family == "rwkv6":
-        return {"ln1": rms_norm_init(d, lead, gen.device),
-                "ln2": rms_norm_init(d, lead, gen.device),
+        return {"ln1": _norm_init(cfg, d, lead, dev),
+                "ln2": _norm_init(cfg, d, lead, dev),
                 "tm": ssm.rwkv6_time_mix_init(gen, d, cfg.rwkv_head_dim,
                                               lead=lead),
                 "cm": ssm.rwkv6_channel_mix_init(gen, d, f, lead=lead)}
-    p = {"ln1": rms_norm_init(d, lead, gen.device),
-         "ln2": rms_norm_init(d, lead, gen.device),
+    p = {"ln1": _norm_init(cfg, d, lead, dev),
+         "ln2": _norm_init(cfg, d, lead, dev),
          "attn": attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv,
                                 cfg.head_dim, cfg.qkv_bias, lead=lead)}
     if cfg.post_norms:
-        p["ln1p"] = rms_norm_init(d, lead, gen.device)
-        p["ln2p"] = rms_norm_init(d, lead, gen.device)
+        p["ln1p"] = _norm_init(cfg, d, lead, dev)
+        p["ln2p"] = _norm_init(cfg, d, lead, dev)
     if cfg.moe:
         p["moe"] = moe_mod.moe_init(gen, d, f, cfg.moe.n_experts, lead=lead)
     else:
         p["mlp"] = mlp_init(gen, d, f, cfg.gated_mlp, lead=lead)
+    if cfg.family == "hymba":
+        p["mamba"] = ssm.mamba_init(gen, d, cfg.ssm_state, lead=lead)
+        p["ln_ssm"] = _norm_init(cfg, d, lead, dev)
     return p
 
 
@@ -63,18 +79,26 @@ def stack_init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
     return layer_init(cfg, gen, lead=(cfg.n_layers,))
 
 
+def _any_global(cfg: ArchConfig) -> bool:
+    return any(w < 0 for w in cfg.layer_windows())
+
+
 def init_layer_state(cfg: ArchConfig, batch: int, slots_full: int,
-                     page_size: int = 16,
+                     kv_cache: str = "full", page_size: int = 16,
                      kv_pool_pages: Optional[int] = None,
                      kv_dtype: str = "bf16", device=None,
                      n_layers: Optional[int] = None) -> Dict:
     """Decode state of one layer (``n_layers`` stacks [L] in front): for
     rwkv6 the previous token's normed inputs of the two mixes (bf16) and
-    the WKV state (f32 [B, H, dh, dh]); otherwise a page pool indexed
-    through the one shared page table."""
+    the WKV state (f32 [B, H, dh, dh]), whatever ``kv_cache`` says;
+    otherwise a page pool indexed through the one shared page table
+    ("paged") or a dense cache ("full": ``slots_full`` slots where a layer
+    is global, a ring of ``min(window, slots_full)`` where every layer is
+    windowed), and for hymba the mamba heads' conv inputs [B, 3, D] and
+    SSM state [B, D, N] (f32)."""
     _check_family(cfg)
+    lead = () if n_layers is None else (n_layers,)
     if cfg.family == "rwkv6":
-        lead = () if n_layers is None else (n_layers,)
         h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         return {"tm_prev": torch.zeros(lead + (batch, cfg.d_model),
                                        dtype=COMPUTE_DTYPE, device=device),
@@ -82,11 +106,29 @@ def init_layer_state(cfg: ArchConfig, batch: int, slots_full: int,
                                        dtype=COMPUTE_DTYPE, device=device),
                 "S": torch.zeros(lead + (batch, h, dh, dh),
                                  dtype=torch.float32, device=device)}
-    npp = -(-slots_full // page_size)
-    n_pages = 1 + batch * npp if kv_pool_pages is None else kv_pool_pages
-    return {"kv": kvs.init_pool(n_pages, cfg.n_kv, page_size, cfg.head_dim,
-                                kv_dtype=kv_dtype, n_layers=n_layers,
-                                device=device)}
+    if kv_cache == "paged":
+        npp = -(-slots_full // page_size)
+        n_pages = 1 + batch * npp if kv_pool_pages is None \
+            else kv_pool_pages
+        st = {"kv": kvs.init_pool(n_pages, cfg.n_kv, page_size,
+                                  cfg.head_dim, kv_dtype=kv_dtype,
+                                  n_layers=n_layers, device=device)}
+    elif kv_cache == "full":
+        # one slot count for every layer (the JAX package scans a
+        # homogeneous stack): rings only where no layer is global
+        slots = slots_full if _any_global(cfg) \
+            else min(cfg.window, slots_full)
+        st = {"kv": kvc.init_cache(batch, cfg.n_kv, slots, cfg.head_dim,
+                                   n_layers=n_layers, device=device)}
+    else:
+        raise ValueError(f"unknown kv_cache {kv_cache!r}")
+    if cfg.family == "hymba":
+        st["mamba"] = {
+            "conv": torch.zeros(lead + (batch, 3, cfg.d_model),
+                                dtype=torch.float32, device=device),
+            "h": torch.zeros(lead + (batch, cfg.d_model, cfg.ssm_state),
+                             dtype=torch.float32, device=device)}
+    return st
 
 
 def init_stack_state(cfg: ArchConfig, batch: int, slots_full: int,
@@ -101,7 +143,7 @@ def layer_view(tree, i: int):
     """Layer ``i`` of a stacked param / state tree, as views."""
     if isinstance(tree, dict):
         return {k: layer_view(v, i) for k, v in tree.items()}
-    if isinstance(tree, (CompressedFC, kvs.PagedKV)):
+    if isinstance(tree, (CompressedFC, kvs.PagedKV, kvc.KVCache)):
         return tree.layer(i)
     return tree[i]
 
@@ -118,20 +160,27 @@ def ffn(cfg: ArchConfig, p: Dict, x, h):
     MLP or MoE over the normed sum, its post-norm, residual add ->
     (x, aux): the MoE's load-balancing loss, None for an MLP (so a decode
     step makes no scalar it would throw away)."""
+    nrm = _norm(cfg)
     if cfg.post_norms:
-        h = rms_norm(h, p["ln1p"])
+        h = nrm(h, p["ln1p"])
     x = x + h
     aux = None
     if cfg.moe:
         h, aux = moe_mod.moe_apply(
-            p["moe"], rms_norm(x, p["ln2"]), n_experts=cfg.moe.n_experts,
+            p["moe"], nrm(x, p["ln2"]), n_experts=cfg.moe.n_experts,
             top_k=cfg.moe.top_k, group_size=cfg.moe.group_size,
             capacity_factor=cfg.moe.capacity_factor)
     else:
-        h = mlp(rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
+        h = mlp(nrm(x, p["ln2"]), p["mlp"], cfg.act)
     if cfg.post_norms:
-        h = rms_norm(h, p["ln2p"])
+        h = nrm(h, p["ln2p"])
     return x + h, aux
+
+
+def _hybrid(cfg: ArchConfig, p: Dict, h, hs):
+    """hymba: the attention and mamba heads' mean, 0.5 * (norm(attn) +
+    mamba), in bf16."""
+    return 0.5 * (_norm(cfg)(h, p["ln_ssm"]) + hs.to(COMPUTE_DTYPE))
 
 
 def unstack(tree, n: int):
@@ -148,19 +197,24 @@ def block_forward(cfg: ArchConfig, p: Dict, x, positions, window: int,
                   attn_impl: str = "einsum"):
     """One layer, training / prefill, x [B, T, D] bf16 -> (x, aux); aux is
     the MoE's load-balancing loss, None elsewhere.  An rwkv6 layer starts
-    from a zero token shift and a zero WKV state."""
+    from a zero token shift and a zero WKV state, a hymba layer's mamba
+    heads from a zero SSM state."""
     _check_family(cfg)
+    nrm = _norm(cfg)
     if cfg.family == "rwkv6":
         zeros = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
                             device=x.device)
-        h, _ = ssm.rwkv6_time_mix(p["tm"], rms_norm(x, p["ln1"]), zeros,
+        h, _ = ssm.rwkv6_time_mix(p["tm"], nrm(x, p["ln1"]), zeros,
                                   d_head=cfg.rwkv_head_dim)
         x = x + h
-        h, _ = ssm.rwkv6_channel_mix(p["cm"], rms_norm(x, p["ln2"]), zeros)
+        h, _ = ssm.rwkv6_channel_mix(p["cm"], nrm(x, p["ln2"]), zeros)
         return x + h, None
-    h = attn.attn_apply(p["attn"], rms_norm(x, p["ln1"]), positions,
+    h = attn.attn_apply(p["attn"], nrm(x, p["ln1"]), positions,
                         window=window, causal=cfg.causal, impl=attn_impl,
                         **_attn_kwargs(cfg))
+    if cfg.family == "hymba":
+        h = _hybrid(cfg, p, h, ssm.mamba_apply(p["mamba"], nrm(x, p["ln1"]),
+                                               state=cfg.ssm_state))
     return ffn(cfg, p, x, h)
 
 
@@ -202,32 +256,47 @@ def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
 
 def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
                  window: int, page_table):
-    """One layer, one token, x [B, 1, D].  Writes the layer's pool (or its
-    rwkv6 state) in place and returns (state, x)."""
+    """One layer, one token, x [B, 1, D].  Writes the layer's pool or
+    dense cache (and hymba's mamba state, or the rwkv6 state) in place and
+    returns (state, x).  ``page_table`` None takes the dense cache, a ring
+    where no layer is global."""
+    nrm = _norm(cfg)
     if cfg.family == "rwkv6":
         tm, h = ssm.rwkv6_time_mix_decode(
             p["tm"], {"prev": st["tm_prev"], "S": st["S"]},
-            rms_norm(x, p["ln1"]), d_head=cfg.rwkv_head_dim)
+            nrm(x, p["ln1"]), d_head=cfg.rwkv_head_dim)
         x = x + h
         cm_prev, h = ssm.rwkv6_channel_mix_decode(p["cm"], st["cm_prev"],
-                                                  rms_norm(x, p["ln2"]))
+                                                  nrm(x, p["ln2"]))
         st["tm_prev"].copy_(tm["prev"])
         st["S"].copy_(tm["S"])
         st["cm_prev"].copy_(cm_prev)
         return st, x + h
-    pool, h = attn.attn_decode_paged(p["attn"], st["kv"], page_table,
-                                     rms_norm(x, p["ln1"]), cur_pos,
-                                     window=window, **_attn_kwargs(cfg))
+    if page_table is not None:
+        cache, h = attn.attn_decode_paged(p["attn"], st["kv"], page_table,
+                                          nrm(x, p["ln1"]), cur_pos,
+                                          window=window, **_attn_kwargs(cfg))
+    else:
+        cache, h = attn.attn_decode(p["attn"], st["kv"], nrm(x, p["ln1"]),
+                                    cur_pos, window=window,
+                                    ring=not _any_global(cfg),
+                                    **_attn_kwargs(cfg))
+    if cfg.family == "hymba":
+        mst, hs = ssm.mamba_decode(p["mamba"], st["mamba"], nrm(x, p["ln1"]),
+                                   state=cfg.ssm_state)
+        st["mamba"]["conv"].copy_(mst["conv"])
+        st["mamba"]["h"].copy_(mst["h"])
+        h = _hybrid(cfg, p, h, hs)
     x, _ = ffn(cfg, p, x, h)
-    return {"kv": pool}, x
+    return dict(st, kv=cache), x
 
 
 def stack_decode(cfg: ArchConfig, stacked: Dict, states: Dict, x, cur_pos,
                  page_table):
     """Every layer in turn over layer views of the stacked params and
-    state; the pools (or rwkv6 states) are written in place, so the
-    returned state is the one passed in.  ``page_table`` is None for
-    rwkv6."""
+    state; the pools, caches and recurrent states are written in place, so
+    the returned state is the one passed in.  ``page_table`` is None for
+    rwkv6 and the dense cache."""
     for i, window in enumerate(cfg.layer_windows()):
         _, x = block_decode(cfg, layer_view(stacked, i),
                             layer_view(states, i), x, cur_pos, window,

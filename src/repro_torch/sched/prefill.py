@@ -19,9 +19,9 @@ written (one scatter, ``kvstore.update_chunk``) before the chunk attends
 page-table index is the absolute position, so each query's mask at its
 own position sees in-chunk keys exactly like history.
 
-Scope: the paged cache and the dense and moe rms-norm families, as the
-port's decode step (``transformer._check_family``); families with
-per-token recurrent state would scan the chunk token by token anyway.  A
+Scope: the paged cache and the dense and moe families; families with
+per-token recurrent state (rwkv6, hymba) would scan the chunk token by
+token anyway, and an encoder has no decode.  A
 MoE layer routes the whole [B, C] block as one token group, padding
 positions included, as the JAX package's step does.
 """
@@ -36,7 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (COMPUTE_DTYPE, _bf16_matmul, dense,
-                                       embed, rms_norm, softcap, unembed)
+                                       embed, softcap, unembed)
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
@@ -53,8 +53,9 @@ def _block_prefill(cfg: ArchConfig, p: Dict, st: Dict, x, positions,
     page table."""
     scale = (cfg.head_dim ** -0.5) if cfg.attn_scale is None \
         else cfg.attn_scale
-    q, k, v = attn._qkv(p["attn"], rms_norm(x, p["ln1"]), cfg.n_heads,
-                        cfg.n_kv, cfg.head_dim, positions, cfg.rope_theta)
+    q, k, v = attn._qkv(p["attn"], tfm._norm(cfg)(x, p["ln1"]),
+                        cfg.n_heads, cfg.n_kv, cfg.head_dim, positions,
+                        cfg.rope_theta)
     pool = kvs.update_chunk(st["kv"], table, k.float(), v.float(),
                             positions, valid=valid)
     o = kvs.paged_attention_chunk(q, pool, table, positions, window,
@@ -68,7 +69,6 @@ def _stack_prefill(cfg: ArchConfig, stacked: Dict, states: Dict, x,
     """Every layer in turn over layer views of the stacked params and
     state (the JAX package's scan over layers); pools are written in
     place."""
-    tfm._check_family(cfg)
     for i, window in enumerate(cfg.layer_windows()):
         x = _block_prefill(cfg, tfm.layer_view(stacked, i),
                            tfm.layer_view(states, i), x, positions, valid,
@@ -98,7 +98,7 @@ def prefill_step(cfg: ArchConfig, params: Dict, state: Dict,
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = _stack_prefill(cfg, params["layers"], state["layers"], x,
                        positions, valid, table)
-    x = rms_norm(x, params["final_norm"])
+    x = tfm._norm(cfg)(x, params["final_norm"])
     if cfg.tie_embeddings:
         logits = unembed(x, params["embed"])
     else:

@@ -71,7 +71,11 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig):
     def grad_fn(params, mb):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         lval, _ = loss(live, mb)
-        grads = torch.autograd.grad(lval, leaves(live))
+        # a leaf the loss never reads (an audio model's token embedding)
+        # gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(lval, leaves(live), allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves(live), grads)]
         return lval.detach(), _fill(params, iter(grads))
 
     def train_step(state: TrainState, batch: Dict):

@@ -312,7 +312,8 @@ def test_decode_state_and_bridge_match_reference(jparams, tparams):
     """The port's rwkv6 decode state has the reference's leaves, shapes and
     types, and a reference state crosses the bridge; with no kv_cache asked
     each family takes its own, the paged cache is refused for rwkv6 as in
-    the reference, and attention families still refuse the full cache."""
+    the reference, and attention families take the full cache (a dense
+    KVCache whose slots read as empty), as in the reference."""
     jst = JM.init_decode_state(JCFG, 3, MAX_LEN)
     tst = TM.init_decode_state(CFG, 3, MAX_LEN, kv_cache="full")
     got = bridge.from_reference(jax.tree.map(np.asarray, jst))
@@ -328,9 +329,11 @@ def test_decode_state_and_bridge_match_reference(jparams, tparams):
                                                 3, MAX_LEN)
     with pytest.raises(ValueError, match="attention-free"):
         TM.init_decode_state(CFG, 3, MAX_LEN, kv_cache="paged")
-    with pytest.raises(NotImplementedError, match="full"):
-        TM.init_decode_state(reduced(get("llama3-8b")), 3, MAX_LEN,
-                             kv_cache="full")
+    full = TM.init_decode_state(reduced(get("llama3-8b")), 3, MAX_LEN,
+                                kv_cache="full")
+    assert "page_table" not in full
+    assert tuple(full["layers"]["kv"].pos.shape) == (2, 3, MAX_LEN)
+    assert bool((full["layers"]["kv"].pos == -1).all())
     assert set(tparams["layers"]["tm"]) == set(jparams["layers"]["tm"])
     assert set(tparams["layers"]["cm"]) == set(jparams["layers"]["cm"])
     assert tparams["lm_head"].shape == (JCFG.d_model, JCFG.vocab_padded)

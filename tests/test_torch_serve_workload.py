@@ -29,7 +29,7 @@ from repro_torch import kvstore as tkvs
 from repro_torch import obs as tobs
 from repro_torch import sched as tschd
 from repro_torch.api import Engine, Request
-from repro_torch.api.session import RecurrentSession, Session
+from repro_torch.api.session import Session
 from repro_torch.configs import get, reduced
 
 SMALL = dict(n_layers=2, d_model=64, d_ff=128, vocab=256)
@@ -91,8 +91,7 @@ def _port_session(params, cfg=CFG, **kw):
     kw.setdefault("batch_slots", SLOTS)
     kw.setdefault("max_len", ML)
     kw.setdefault("page_size", PS)
-    cls = RecurrentSession if cfg.family == "rwkv6" else Session
-    return cls(cfg, params, device="cpu", **kw)
+    return Session(cfg, params, device="cpu", **kw)
 
 
 def _jreqs(arrivals):
