@@ -70,7 +70,17 @@ Phases, each of which exits non-zero when it fails:
    alone; seeded sampling repeated; the tick-clock trace equal to the CPU
    run's; and ``python -m repro_torch.launch.serve`` (qwen1.5-0.5b, full
    size, aida, shared-prefix, sjf, prefix cache) exiting 0 with every
-   request served, none leaked and the card in its provenance; and, on
+   request served, none leaked and the card in its provenance; then
+   disaggregated serving on the same engine: the burst workload (8
+   requests, chunk 8) co-located (4 slots) and through a prefill role (2
+   slots) and a decode role (4 slots) sharing the weights, each with its
+   own page pool (tokens equal up to the drift rule's flips, exact
+   launches per role, pages and bytes migrated, TTFT / TPOT, no leaked
+   page, clean audits, the scheduling clock equal to the CPU run's), an
+   int8 migration equal bit for bit (codes and scales), ``drop-handoff:1``
+   and ``page-spike:0`` with deadlines and retries, each run twice to
+   identical records and summaries, and the launcher with ``--disagg
+   --fault-plan drop-handoff:3`` (qwen1.5-0.5b, full size); and, on
    the same engine, the four requests from the full KV cache
    (``kv_cache="full"``: chunk 1, no paged-attention launch, tokens equal
    to the paged chunk-1 serve's up to near-tie flips);
@@ -130,6 +140,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -269,10 +280,10 @@ HYMBA_PROJECTIONS = [              # hymba-1.5b: attention, MLP, mamba
 # column counts K1 is held at: 1 and 8 bound the gather variant, and 3
 # takes its loop for widths other than 1, 4 and 8; 12 and 40 take the wide
 # variant's 16-column pass and a second (8-column) group after a 32-column
-# one; 4 (decode) and 32 (a chunk-8 step of 4 slots) are the serve's, and
-# timed
-K1_COLUMNS = (1, 3, 4, 8, 12, 32, 40)
-K1_TIMED = (4, 32)
+# one; 4 (decode), 16 (a chunk-8 step of the disaggregated prefill role's
+# 2 slots) and 32 (a chunk-8 step of 4 slots) are the serves', and timed
+K1_COLUMNS = (1, 3, 4, 8, 12, 16, 32, 40)
+K1_TIMED = (4, 16, 32)
 
 
 def _k1_weight(gen, dev, n_out, n_in, name):
@@ -337,8 +348,9 @@ def k1_phase(dev, flush):
     gemma2-2b's gate with its tanh-gelu epilogue (at 1, 4, 32 columns);
     and, untimed at 1, 4 and 32 columns, every other projection shape of
     the families served at full width (``_family_projections``: qwen1.5's
-    q / k / v with their bias, h2o-danube's and gemma2-2b's).  Times at
-    the serve's shapes.  Returns
+    q / k / v with their bias, h2o-danube's and gemma2-2b's), qwen1.5-
+    0.5b's at 16 columns too (the disaggregated launcher's prefill role).
+    Times at the serves' shapes.  Returns
     the max errors, llama3-8b's per-layer totals by variant, and
     rwkv6-7b's and hymba-1.5b's per-layer totals at 4 columns."""
     import torch
@@ -365,7 +377,8 @@ def k1_phase(dev, flush):
          ("empty-rows", 4096, 4096, "aida", "f32", K1_COLUMNS, None),
          ("skewed-rows", 4096, 4096, "aida", "f32", (1, 4, 8), None),
          (*GELU_GATE, "aida", "f32", (1, 4, 32), None)] + \
-        [(n, o, i, "aida", "f32", (1, 4, 32), "held")
+        [(n, o, i, "aida", "f32", (1, 4, 16, 32) if "qwen1.5-0.5b" in n
+          else (1, 4, 32), "held")
          for n, o, i, _, _ in _family_projections()]
     epilogue = {n: (a, b) for n, _, _, a, b in _family_projections()}
     n_same, calls = 0, {}
@@ -477,7 +490,9 @@ def k1_phase(dev, flush):
             + " ".join(f"{k}={row[k]:.4f}" for k in keys))
     log("K1 acsr_spmv_gather one rwkv6-7b layer (8 projections, B=4): "
         + " ".join(f"{k}={rwkv6[k]:.4f}" for k in keys))
-    times = {kern: {batch: row} for (kern, batch), row in totals.items()}
+    times = {}
+    for (kern, batch), row in totals.items():
+        times.setdefault(kern, {})[batch] = row
     log("K1 acsr_spmv_gather one hymba-1.5b layer (9 projections, B=4): "
         + " ".join(f"{k}={hymba[k]:.4f}" for k in keys))
     return errs, times, {"rwkv6-7b": rwkv6, "hymba-1.5b": hymba}
@@ -1942,6 +1957,269 @@ def traffic_phase(dev, eng):
         f"{prov['card']!r}")
 
 
+# ------------------------------------------------- disaggregated serving
+DISAGG = {"prefill_slots": 2, "decode_slots": 4}
+DISAGG_REQUESTS = 8
+DISAGG_FAULTS = ("drop-handoff:1", "page-spike:0")
+#: the fault runs' resilience knobs (the launcher's --deadline-ticks and
+#: --max-retries) and a decode pool of 8 usable pages, so that a page
+#: spike's holdback (60 %) stalls handoffs
+DISAGG_RESIL = {"deadline_ticks": 64, "max_retries": 2, "watchdog_every": 8}
+DISAGG_FAULT_POOL = 9
+#: record fields of a disaggregated run set by the scheduling clock alone
+#: (bytes follow the model's width, so a reduced twin's differ)
+DISAGG_FIELDS = SCHED_FIELDS + ("submit_tick", "first_token_tick",
+                                "prefill_done_tick", "handoff_ticks",
+                                "migrated_pages", "failed_reason", "retries")
+DISAGG_LAUNCH = ("--arch", "qwen1.5-0.5b", "--full-size", "--compress",
+                 "aida", "--density", "0.25", "--disagg", "--prefill-slots",
+                 "2", "--decode-slots", "4", "--fault-plan", "drop-handoff:3",
+                 "--deadline-ticks", "64", "--max-retries", "2", "--chunk",
+                 "8")
+
+
+def _keep_rows(*sessions):
+    """Wrap each session's ``_emit`` to keep the logits row each token was
+    drawn from, by rid in emission order (a disaggregated request's first
+    row from its prefill role, the rest from its decode role)."""
+    rows = {}
+    for sess in sessions:
+        def keep(i, logits_i, now, sess=sess, emit=sess._emit):
+            rows.setdefault(sess.slot_entry[i].req.rid, []).append(
+                logits_i.copy())
+            emit(i, logits_i, now)
+        sess._emit = keep
+    return rows
+
+
+def _disagg_counted(dev, eng, arrivals, label, disagg=DISAGG, **kw):
+    """A disaggregated ``run_workload`` on the card, every launch count set
+    to 0 just before and read just after: exact launches from each role's
+    steps (the prefill role's chunked steps: K1 at 2 x 8 columns and K3;
+    a decode step of either role: K1 at its slots' columns and K2), both
+    pools drained, the audits clean, finite logits.  Returns (results,
+    session, its logits rows, seconds, launch counts)."""
+    import torch
+    from repro_torch import resil
+    sess = eng.session(max_len=256, page_size=16, disagg=disagg,
+                       scheduler={"chunk": 8, "policy": "fifo"}, **kw)
+    rows = _keep_rows(sess.pre, sess.dec)
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = sess.run_workload(arrivals, on_incomplete="warn"
+                            if sess.resil is not None else "raise")
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    n_layers, n_fc = eng.cfg.n_layers, _fc_per_layer(eng)
+    want = dict.fromkeys(fns, 0)
+    for role in (sess.pre, sess.dec):
+        pre = role.stats["prefill_steps"]
+        dec = role.stats["steps"] - pre
+        for kern, n in ((_k1_variant(role.slots), n_fc * n_layers * dec),
+                        (_k1_variant(role.slots * role.chunk),
+                         n_fc * n_layers * pre)):
+            want[kern] += n
+        want["paged_attention_decode"] += n_layers * dec
+        want["paged_attention_chunk"] += n_layers * pre
+    if counts != want:
+        raise AssertionError(f"{label}: launches {json.dumps(counts)}, "
+                             f"expected {json.dumps(want)}")
+    if len(res) + len(sess.failed) != len(arrivals):
+        raise AssertionError(f"{label}: {len(res)} served and "
+                             f"{len(sess.failed)} failed of {len(arrivals)}")
+    left = sess.pre.alloc.in_use + sess.dec.alloc.in_use
+    audits = resil.audit_session(sess.pre) + resil.audit_session(sess.dec)
+    if left or audits or sess.dec.stats["preemptions"]:
+        raise AssertionError(f"{label}: {left} pages leaked, audits "
+                             f"{audits}, {sess.dec.stats['preemptions']} "
+                             "decode preemptions")
+    if sess.pre.stats["nonfinite_logit_rows"] or \
+            sess.dec.stats["nonfinite_logit_rows"]:
+        raise AssertionError(f"{label}: non-finite logits were emitted")
+    return res, sess, rows, dt, counts
+
+
+def _disagg_view(sess):
+    """The scheduling-clock view of a disaggregated run: every record's
+    tick and step fields, both roles' stats, role_stats, the router's
+    counters and the resilience summary (byte counts left out)."""
+    def clock(stats):
+        return {k: v for k, v in stats.items() if k != "migrated_bytes"}
+    return {"records": [{k: r.get(k) for k in DISAGG_FIELDS}
+                        for r in sess.records],
+            "stats": clock(sess.stats), "roles": sess.role_stats(),
+            "pre": clock(sess.pre.stats), "dec": clock(sess.dec.stats),
+            "router": sess.router.stats, "resil": sess.resil_summary(),
+            "failed": [repr(f) for f in sess.failed]}
+
+
+def _int8_migration(eng, arrivals):
+    """Two requests through int8 pools: every page the decode role admits
+    must equal, codes and scales, the prefill page it came from
+    (``torch.equal``).  Returns the pages compared."""
+    import dataclasses
+
+    import torch
+    sess = eng.session(max_len=256, page_size=16, disagg=DISAGG,
+                       kv_dtype="int8", scheduler={"chunk": 8})
+    admit, seen = sess.dec.admit_handoff, []
+
+    def check(i, h, src_state, **kw):
+        moved = admit(i, h, src_state, **kw)
+        src, dst = src_state["layers"]["kv"], sess.dec.state["layers"]["kv"]
+        for j, pid in h.live():
+            for name in src._fields:
+                a = getattr(src, name)[:, pid]
+                b = getattr(dst, name)[:, int(sess.dec.host_table[i, j])]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"int8 migration: page {pid} "
+                                         f"{name} differs after the copy")
+            seen.append(pid)
+        return moved
+    sess.dec.admit_handoff = check
+    for _, r in arrivals[:2]:
+        sess.submit(dataclasses.replace(r, max_new=4))
+    res = sess.run()
+    if not sess.dec.state["layers"]["kv"].quantized or len(res) != 2 \
+            or not seen:
+        raise AssertionError("int8 migration: no int8 page was migrated")
+    return len(seen)
+
+
+def _launch_disagg(out):
+    """``python -m repro_torch.launch.serve --disagg --fault-plan
+    drop-handoff:3`` (qwen1.5-0.5b, full size, aida 0.25) as a user runs
+    it; its lines are logged and its ``--json`` dump returned."""
+    import os
+    path = out / "disagg.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *DISAGG_LAUNCH,
+         "--json", str(path)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"launcher disagg: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher --disagg exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(path.read_text())
+
+
+def _ms(dist):
+    return "-" if not dist else \
+        f"{dist['p50'] * 1e3:.1f} / {dist['p99'] * 1e3:.1f}"
+
+
+def disagg_phase(dev, eng):
+    """Disaggregated serving on the aida engine of phase 9 (llama3-8b, full
+    width, chunk 8): the burst workload co-located (4 slots) and
+    disaggregated (2 prefill + 4 decode slots, one card, one set of
+    weights), tokens held by the drift rule, exact launches, pages and
+    bytes migrated, TTFT / TPOT, no leaked page, the scheduling clock equal
+    to a reduced llama3-8b's on the CPU; an int8 migration bit for bit;
+    two fault plans each run twice to identical records and summaries;
+    and the launcher with ``--disagg --fault-plan``.  Returns the K1-K3
+    launches of the disaggregated run and the columns of its wide K1
+    launches (the prefill role's chunked steps)."""
+    import tempfile
+
+    import torch
+    from repro_torch import Engine, get, reduced
+    from repro_torch.sched import WorkloadSpec, generate, summarize
+    cfg = eng.cfg
+    cpu = Engine(reduced(get("llama3-8b"), vocab=cfg.vocab), device="cpu")
+    arrivals = generate(WorkloadSpec.preset(
+        "burst", n_requests=DISAGG_REQUESTS, vocab=cfg.vocab, seed=0))
+    fifo8 = {"chunk": 8, "policy": "fifo"}
+    co = _traffic_session(eng, fifo8)
+    co_rows = _keep_rows(co)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    co_res = co.run_workload(arrivals)
+    torch.cuda.synchronize(dev)
+    co_dt = time.perf_counter() - t0
+    res, d, rows, dt, counts = _disagg_counted(dev, eng, arrivals,
+                                               "disagg burst")
+    flips, worst = _drift_flips(
+        co_res, types.SimpleNamespace(margins=co.margins, emitted=co_rows),
+        res, types.SimpleNamespace(margins=d.margins, emitted=rows),
+        "disagg vs co-located")
+    twin = cpu.session(max_len=256, page_size=16, disagg=DISAGG,
+                       scheduler=fifo8)
+    twin.run_workload(arrivals)
+    if _disagg_view(d) != _disagg_view(twin):
+        raise AssertionError("disagg burst: the scheduling clock differs "
+                             "from the CPU run's: " + json.dumps(
+                                 [_disagg_view(d), _disagg_view(twin)]))
+    m_co = summarize(co.records, co_dt, co.stats["steps"])
+    m = summarize(d.records, dt, d.pre.stats["steps"] + d.dec.stats["steps"],
+                  roles=d.role_stats())
+    hand = m["handoff"]
+    log(f"disagg burst ({len(arrivals)} requests, chunk 8): co-located "
+        f"{co.stats['steps']} steps in {co_dt:.2f} s, TTFT p50 / p99 "
+        f"{_ms(m_co['ttft_s'])} ms, TPOT {_ms(m_co['tpot_s'])} ms; "
+        f"disaggregated {d.ticks} ticks (prefill {d.pre.stats['steps']} "
+        f"steps, decode {d.dec.stats['steps']}) in {dt:.2f} s, TTFT "
+        f"{_ms(m['ttft_s'])} ms ({m['ttft_sched']['p50']} / "
+        f"{m['ttft_sched']['p99']} ticks against "
+        f"{m_co['ttft_sched']['p50']} / {m_co['ttft_sched']['p99']} steps), "
+        f"TPOT {_ms(m['tpot_s'])} ms; {hand['count']} handoffs, "
+        f"{hand['migrated_pages']} pages, {hand['migrated_bytes']} bytes "
+        f"migrated, handoff latency p50 / p99 {_ms(hand['latency_s'])} ms; "
+        f"0 leaked; tokens vs co-located: {_flips_text(flips, worst)}; "
+        f"scheduling clock = the CPU run's")
+    log(f"disagg burst: launches {json.dumps(counts)}")
+    n = _int8_migration(eng, arrivals)
+    log(f"disagg int8: {n} migrated pages equal their prefill pages, codes "
+        "and scales, bit for bit")
+    for plan in DISAGG_FAULTS:
+        resil = dict(DISAGG_RESIL, fault_plan=plan)
+        views, toks = [], []
+        for _ in range(2):
+            res_f, df, rows_f, dt_f, _ = _disagg_counted(
+                dev, eng, arrivals, f"disagg {plan}", resil=resil,
+                disagg=dict(DISAGG, decode_pool_pages=DISAGG_FAULT_POOL))
+            views.append(_disagg_view(df))
+            toks.append([(r.rid, r.tokens) for r in res_f])
+        if views[0] != views[1] or toks[0] != toks[1]:
+            raise AssertionError(f"disagg {plan}: the replay differs")
+        flips, worst = _drift_flips(
+            [r for r in co_res if r.rid in {rid for rid, _ in toks[0]}],
+            types.SimpleNamespace(margins=co.margins, emitted=co_rows),
+            res_f, types.SimpleNamespace(margins=df.margins, emitted=rows_f),
+            f"disagg {plan} vs co-located")
+        s = views[0]["resil"]
+        log(f"disagg {plan}: {len(res_f)} served, {len(df.failed)} failed "
+            f"{views[0]['failed']}, {df.ticks} ticks in {dt_f:.2f} s, "
+            f"faults {json.dumps(s['faults'])}, wait ticks "
+            f"{s['wait_ticks']}, deadline misses {s['deadline_miss']}; "
+            f"replay identical; tokens vs co-located: "
+            f"{_flips_text(flips, worst)}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="disagg_") as out:
+        dump = _launch_disagg(pathlib.Path(out))
+    mm = dump["metrics"]
+    failed = len(dump["failed"])
+    if mm["completed"] + failed != mm["requests"] or dump["pages"]["leaked"] \
+            or mm["resil"]["fault_plan"] != "drop-handoff:3" \
+            or not mm["handoff"]["migrated_bytes"] \
+            or "W" not in (dump["provenance"].get("card") or ""):
+        raise AssertionError(f"launcher --disagg: {json.dumps(dump)}")
+    log(f"launcher disagg: exit 0 in {time.perf_counter() - t0:.1f} s, "
+        f"{mm['completed']}/{mm['requests']} served, {failed} failed, "
+        f"faults {json.dumps(mm['resil']['faults'])}, roles "
+        f"{json.dumps(mm['roles'])}, 0 leaked")
+    wide = d.pre.slots * d.pre.chunk
+    if wide not in K1_TIMED:
+        raise AssertionError(f"disagg: K1 runs at {wide} columns, which "
+                             "K1_TIMED does not time")
+    return counts, wide
+
+
 # the int8 / codebook4 serves' depth (of llama3-8b's 32): cut so that the
 # run stays well inside its time limit on a loaded host; their K4 / K5
 # launches and times are per layer
@@ -3015,6 +3293,9 @@ def main(argv=None) -> int:
                            paged1)]
     del paged1
     _timed("serve traffic", traffic_phase, dev, eng)
+    disagg, wide = _timed("serve disagg", disagg_phase, dev, eng)
+    slice_serves.append(disagg)   # its wide K1 runs at its own columns
+    by_rows["acsr_spmv_wide"][wide] = disagg["acsr_spmv_wide"]
     del eng
     by_rows.update(_timed("serve int8 / codebook4", fc_mode_serves, dev,
                           min(layers, FC_MODE_LAYERS)))

@@ -38,8 +38,18 @@ slot's slot-shaped state is zeroed and its cache positions read as empty
 (-1).  hymba's mamba state is zeroed on admission under either cache.  An
 encoder (no decode step) is refused.  One difference from the JAX
 package: hymba refuses the prefix cache, since attached prompt pages never
-pass through its mamba heads, whose state would miss them.  Not ported
-yet: mesh serving, and the disaggregated and resilience layers.
+pass through its mamba heads, whose state would miss them.
+
+Resilience (``resil=``, `repro_torch.resil`): a ``ResilConfig`` (or dict,
+or ``"preset:seed"`` fault-plan string) adds per-request deadlines, load
+shedding, the degradation ladder, the watchdog's audits and seeded fault
+injection; a request the session gives up on leaves as a structured
+``RequestFailed`` in ``failed``, never as an exception.  An injected step
+fault is raised before the step enqueues any work on the device, so the
+tick is lost and nothing is launched.  ``resil=None`` (the default) is the
+serving path without any of these seams.  The disaggregated roles
+(`repro_torch.disagg`) are subclasses of this session.  Not ported yet:
+mesh serving.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ import torch
 
 from repro_torch import kvstore as kvs
 from repro_torch import obs as obs_mod
+from repro_torch import resil as rsl
 from repro_torch import sched as schd
 from repro_torch.api.spec import Request, Result
 from repro_torch.configs.base import ArchConfig
@@ -90,7 +101,8 @@ class Session:
                  max_len: int = 256, *, device, seed: int = 0,
                  kv_cache: Optional[str] = None, page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
-                 kv_dtype: Optional[str] = None, scheduler=None, obs=None):
+                 kv_dtype: Optional[str] = None, scheduler=None,
+                 resil=None, obs=None):
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is an encoder: it has no decode "
                              "step to serve")
@@ -128,13 +140,21 @@ class Session:
         # per slot, the next prompt page to offer the prefix cache
         self.slot_cache_j: List[int] = [0] * batch_slots
         self.results: List[Result] = []
+        self.failed: List[rsl.RequestFailed] = []
         #: one lifecycle record per request (the JAX package's schema)
         self.records: List[dict] = []
         #: per request, the top-2 logit margin of every emitted token
         self.margins: Dict[int, List[float]] = {}
         # sampling draws: a CPU generator, advanced only by sampled tokens
         self.gen = torch.Generator().manual_seed(seed)
-        self.role = "engine"
+        # resilience layer: None is the path without it; a ResilState may
+        # be shared by the disaggregated roles, so counters meet in one
+        # place
+        if resil is None or isinstance(resil, rsl.ResilState):
+            self.resil = resil
+        else:
+            self.resil = rsl.ResilState(rsl.ResilConfig.coerce(resil))
+        self.role = "engine"       # disaggregated roles: prefill / decode
         self.tick = 0              # scheduling-opportunity clock
         # observability: obs.NULL keeps every seam on the untraced path
         # (hooks stay None, emits are no-ops)
@@ -171,13 +191,21 @@ class Session:
 
     def _wire_obs(self) -> None:
         """Attach the tracer to the host-side seams; the hook reads
-        ``self.tick`` when it fires."""
-        hook = self.tracer.hook(self.role, lambda: self.tick)
+        ``self.role`` and ``self.tick`` when it fires, so a disaggregated
+        role renamed after construction stamps its own name."""
+        def hook(name, **args):
+            self.tracer.instant(name, tick=self.tick, role=self.role,
+                                **args)
         if self.alloc is not None:
             self.alloc.obs = hook
         if self.prefix is not None:
             self.prefix.obs = hook
         self.sched.obs = hook
+        if self.resil is not None:
+            if self.resil.degrade is not None:
+                self.resil.degrade.obs = hook
+            if self.resil.watchdog is not None:
+                self.resil.watchdog.obs = hook
 
     def _step_ctx(self, phase: str):
         """Wall-clock phase accounting around a step and its logits copy
@@ -198,6 +226,9 @@ class Session:
                    submit_time=entry.submit_time, state="queued")
         entry.record = rec
         self.records.append(rec)
+        if self.resil is not None:
+            entry.deadline_tick = self.resil.deadline_for(req, self.tick)
+            rec["deadline_tick"] = entry.deadline_tick
         self.tracer.instant("req.submit", tick=self.tick, role=self.role,
                             rid=req.rid, prompt_len=len(req.prompt),
                             max_new=req.max_new)
@@ -216,15 +247,15 @@ class Session:
                      on_incomplete: str = "raise") -> List[Result]:
         """Serve timed traffic: ``arrivals`` is [(arrival_step, Request)]
         (see sched.workload); requests already submit()ed count as step-0
-        arrivals.  Idle gaps fast-forward the clock.  An ``OutOfPages``
-        escaping the loop dumps the flight recorder (when the tracer has
-        one) before it is raised again."""
+        arrivals.  Idle gaps fast-forward the clock.  A ``HealthError`` or
+        ``OutOfPages`` escaping the loop dumps the flight recorder (when
+        the tracer has one) before it is raised again."""
         if on_incomplete not in ON_INCOMPLETE:
             raise ValueError(f"on_incomplete={on_incomplete!r}; choose one "
                              f"of {ON_INCOMPLETE}")
         try:
             return self._run_loop(arrivals, max_steps, on_incomplete)
-        except kvs.OutOfPages as e:
+        except (rsl.HealthError, kvs.OutOfPages) as e:
             self.tracer.crash(type(e).__name__, role=self.role,
                               tick=self.tick, error=str(e))
             raise
@@ -240,8 +271,16 @@ class Session:
             self.tick = clock
             while pending and pending[0][0] <= clock:
                 self.submit(pending.popleft()[1])
+            if self.resil is not None:
+                self._resil_tick(clock)
             self._fill_slots()
             if all(e is None for e in self.slot_entry):
+                if self._fault_waiting():
+                    # an injected page spike holds the pool: burn the tick
+                    # so the window can pass, not an admission deadlock
+                    self.resil.count("wait_ticks")
+                    clock += 1
+                    continue
                 if len(self.sched):
                     self._incomplete(on_incomplete, blocked=True,
                                      pending=pending)
@@ -250,7 +289,21 @@ class Session:
                     clock = pending[0][0]
                     continue
                 break
-            self._advance()
+            try:
+                self._advance()
+            except rsl.InjectedFault as f:
+                # an injected step failure (role-stall / straggler): the
+                # tick is lost, the work is not
+                self.resil.count("fault_steps")
+                self.tracer.instant("fault.injected", tick=self.tick,
+                                    role=self.role, fault=f.fault_class)
+            except kvs.OutOfPages:
+                if self._fault_waiting():
+                    # a page spike squeezed even the last runner: wait the
+                    # window out (pages come back, recompute resumes)
+                    self.resil.count("wait_ticks")
+                else:
+                    raise
             clock += 1
         else:
             self._incomplete(on_incomplete, blocked=False, pending=pending)
@@ -281,6 +334,91 @@ class Session:
             warnings.warn(msg, RuntimeWarning, stacklevel=4)
             return
         raise kvs.OutOfPages(msg) if blocked else RuntimeError(msg)
+
+    # ------------------------------------------------------- resil layer
+    def resil_summary(self) -> Optional[dict]:
+        """Shed / retry / deadline-miss / fault counters, or None when the
+        resilience layer is off."""
+        return None if self.resil is None else self.resil.summary()
+
+    def _fault_waiting(self) -> bool:
+        """Idle because an injected page spike holds the pool (burn the
+        tick), not because admission is deadlocked."""
+        return (self.resil is not None and self.alloc is not None
+                and self.alloc.holdback > 0)
+
+    def _resil_tick(self, tick: int) -> None:
+        """Per-tick policy: the fault plan's page holdback, deadline expiry,
+        load shedding past the watermark, the degradation ladder and the
+        watchdog's audit."""
+        r = self.resil
+        if r.plan is not None and self.alloc is not None:
+            self.alloc.holdback = r.plan.page_holdback(
+                self.alloc.n_pages - 1, tick, role=self.role)
+        self._expire_queue_deadlines(tick)
+        self._expire_slot_deadlines(tick)
+        if r.cfg.shed_watermark is not None and self.alloc is not None:
+            self._shed_load()
+        if r.degrade is not None and self.alloc is not None:
+            usable = max(1, self.alloc.n_pages - 1)
+            if r.degrade.update(self.alloc.available / usable) >= 1 \
+                    and self.prefix is not None:
+                self.prefix.release(self.alloc, 1)  # level 1: drop LRU pins
+        if r.watchdog is not None and r.watchdog.due(tick):
+            r.count("watchdog_audits")
+            r.watchdog.audit(self)
+
+    def _expire_queue_deadlines(self, tick: int) -> None:
+        for e in self.sched.pop_expired(tick):
+            self.resil.count("deadline_miss")
+            self._fail_entry(e, "deadline")
+
+    def _expire_slot_deadlines(self, tick: int) -> None:
+        for i, entry in enumerate(self.slot_entry):
+            if entry is None or entry.deadline_tick is None \
+                    or tick <= entry.deadline_tick:
+                continue
+            self._detach_slot(i)
+            self.resil.count("deadline_miss")
+            self._fail_entry(entry, "deadline")
+
+    def _shed_load(self) -> None:
+        """Refuse never-admitted queued work, youngest first, while the
+        queue's summed worst-case page need exceeds the watermark share
+        of the usable pool."""
+        r = self.resil
+        limit = r.cfg.shed_watermark * max(1, self.alloc.n_pages - 1)
+        total = sum(self._page_need(e) for e in self.sched.queue)
+        while total > limit:
+            e = self.sched.shed_youngest()
+            if e is None:
+                break
+            total -= self._page_need(e)
+            r.count("shed")
+            self.tracer.instant("sched.shed", tick=self.tick,
+                                role=self.role, rid=e.req.rid)
+            self._fail_entry(e, "shed")
+
+    def _fail_entry(self, entry: schd.SchedEntry, reason: str) -> None:
+        """Terminal structured failure: the request leaves as a
+        RequestFailed result, never as an unhandled exception."""
+        rec = entry.record
+        if rec is not None:
+            rec["state"] = "failed"
+            rec["failed_reason"] = reason
+            rec["retries"] = entry.retries
+            rec["n_generated"] = len(entry.out)
+        self.failed.append(rsl.RequestFailed(
+            rid=entry.req.rid, reason=reason, tokens=list(entry.out),
+            retries=entry.retries))
+        if self.resil is not None:
+            self.resil.count("failed")
+        self.tracer.instant("resil.fail", tick=self.tick, role=self.role,
+                            rid=entry.req.rid, reason=reason,
+                            retries=entry.retries)
+        # flight-recorder post-mortem: the ticks leading up to the failure
+        self.tracer.crash(f"RequestFailed_{reason}", rid=entry.req.rid,
+                          why=reason, role=self.role, tick=self.tick)
 
     # --------------------------------------------------------- admission
     def _page_need(self, entry: schd.SchedEntry) -> int:
@@ -332,6 +470,12 @@ class Session:
             rec["admit_step"] = self.stats["steps"]
             # between steps: the last step's logits are already on the host
             rec["admit_time"] = time.perf_counter()
+        if self.resil is not None and self.resil.degrade is not None \
+                and self.resil.degrade.kv_demote and not rec.get("degraded"):
+            # level 2: this admission would take int8 KV in the next
+            # session (a live session's pool dtype is fixed)
+            rec["degraded"] = True
+            self.resil.count("degraded_admissions")
         self.tracer.instant("sched.admit", tick=self.tick, role=self.role,
                             slot=i, rid=req.rid, resumed=len(entry.out))
         self.slot_entry[i] = entry
@@ -405,20 +549,30 @@ class Session:
         self.state["page_table"][i] = kvs.NO_PAGE
         self.stats["pages_in_use"] = self.alloc.in_use
 
+    def _detach_slot(self, i: int,
+                     release: bool = True) -> schd.SchedEntry:
+        """Take slot ``i``'s request out of the batch and return its entry,
+        the tokens generated so far kept on it; the slot's pages are
+        released unless the caller hands them on (``release=False``)."""
+        entry = self.slot_entry[i]
+        entry.out = list(self.slot_out[i])
+        if release:
+            self._release_slot_pages(i)
+        self.slot_entry[i] = None
+        self.slot_pending[i] = []
+        self.slot_out[i] = []
+        return entry
+
     def _preempt_slot(self, i: int) -> None:
         """Evict slot ``i`` back to the queue front: pages freed now,
         tokens regenerated on re-admission."""
         entry = self.slot_entry[i]
-        entry.out = list(self.slot_out[i])
         entry.record["preemptions"] += 1
+        # traced before the pages go, whose frees the allocator traces
         self.tracer.instant("sched.preempt", tick=self.tick,
                             role=self.role, slot=i, rid=entry.req.rid,
-                            generated=len(entry.out))
-        self._release_slot_pages(i)
-        self.slot_entry[i] = None
-        self.slot_pending[i] = []
-        self.slot_out[i] = []
-        self.sched.requeue(entry)
+                            generated=len(self.slot_out[i]))
+        self.sched.requeue(self._detach_slot(i))
         self.stats["preemptions"] += 1
 
     def _ensure_pages(self, counts: List[int]) -> None:
@@ -530,7 +684,10 @@ class Session:
     def _advance(self):
         """A chunked step while any active slot still has prompt tokens
         pending, a decode step otherwise; then the SWA reclamation and the
-        prefix cache's new pages."""
+        prefix cache's new pages.  The fault plan's step check comes first:
+        an injected fault raises before any work reaches the device."""
+        if self.resil is not None and self.resil.plan is not None:
+            self.resil.plan.check_step(self.role, self.tick)
         if self.chunk > 1 and any(self.slot_pending[i]
                                   for i, e in enumerate(self.slot_entry)
                                   if e is not None):

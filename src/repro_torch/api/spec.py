@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 #: The five FC operating points (``aida`` = the paper's full configuration).
 MODES: Tuple[str, ...] = ("dense", "int8", "codebook4", "acsr", "aida")
@@ -61,6 +61,9 @@ class Request:
     max_new: int = 16
     temperature: float = 0.0
     rid: int = 0
+    # completion budget in ticks from submit (overrides
+    # ResilConfig.deadline_ticks; None = the session's default)
+    deadline_ticks: Optional[int] = None
 
 
 @dataclasses.dataclass

@@ -35,7 +35,7 @@ class PageAllocator:
         self.peak = 0
         self.total_allocs = 0
         # pages held back from admission: the fault-injection seam of the
-        # resilience layer, which the port has not taken yet (always 0)
+        # resilience layer (a page-spike plan sets it each tick; else 0)
         self.holdback = 0
         # observability seam: a ``(name, **args)`` emitter attached by the
         # owning Session when tracing is on; None = no events

@@ -14,10 +14,12 @@ the absolute position.  Page 0 is the write sink: unallocated entries
 The JAX package's ``update`` returns a new pool; here the decode state
 owns its pools and :func:`update` writes them in place (the counterpart
 of the donated decode state in the JAX session), returning the same pool.
+:func:`copy_pages` moves pages between two pools of one geometry (the
+disaggregated roles' page migration), in place too.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -202,3 +204,50 @@ def chunk_attention_mask(table: torch.Tensor, q_pos: torch.Tensor,
     if window < 0:
         return ok
     return ok & (pos > cur - window)
+
+
+# ---------------------------------------------------------- cross-pool copy
+def _page_axis(leaf: torch.Tensor) -> int:
+    """Page axis of a pool leaf: 0 for a single layer's [n_pages, ...]
+    tensors, 1 for the stacked [L, n_pages, ...] serving layout."""
+    return leaf.dim() - 4 if leaf.dim() >= 4 else leaf.dim() - 2
+
+
+def copy_pages(src: PagedKV, dst: PagedKV, src_ids, dst_ids
+               ) -> Tuple[PagedKV, int]:
+    """Copy pages ``src_ids`` of ``src`` into pages ``dst_ids`` of ``dst``
+    (another pool of the same geometry) and return ``(dst, bytes)``.
+
+    The payload moves verbatim: bf16 pages bit for bit, int8 pages their
+    codes *and* per-page scales with no requantization.  Single-layer
+    pools and the stacked [L, n_pages, ...] serving layout alike.  Unlike
+    the JAX package's functional update, ``dst``'s tensors are written in
+    place (``index_select`` from the source, ``index_copy_`` into the
+    destination, on the pools' device: nothing passes through the host)
+    and the same pool object is returned; both pools live on one device.
+    ``bytes`` counts the source rows read, as the JAX package's
+    ``copy_pages`` does."""
+    if src.page_size != dst.page_size or \
+            src.k_pages.shape[-2:] != dst.k_pages.shape[-2:] or \
+            src.quantized != dst.quantized:
+        raise ValueError(
+            f"pool geometry mismatch: src {tuple(src.k_pages.shape)} "
+            f"({src.k_pages.dtype}) vs dst {tuple(dst.k_pages.shape)} "
+            f"({dst.k_pages.dtype})")
+    if len(src_ids) != len(dst_ids):
+        raise ValueError(f"{len(src_ids)} source pages for "
+                         f"{len(dst_ids)} destinations")
+    if not len(src_ids):
+        return dst, 0
+    dev = dst.k_pages.device
+    si = torch.tensor(src_ids, dtype=torch.long, device=dev)
+    di = torch.tensor(dst_ids, dtype=torch.long, device=dev)
+    moved = 0
+    for s, d in zip(src, dst):
+        if s is None:
+            continue
+        ax = _page_axis(s)
+        block = s.index_select(ax, si)
+        moved += block.numel() * block.element_size()
+        d.index_copy_(ax, di, block)
+    return dst, moved

@@ -7,11 +7,17 @@ plain versions::
       --workload heterogeneous --chunk 8 --policy sjf
 
 Without ``--full-size`` the architecture is cut to its reduced size for a
-quick functional serve; weights are random from the engine's seed.  The
-flags and the ``[serve]`` lines are the JAX package's launcher's, less
-those of slices the port has not taken yet (mesh, disaggregated roles,
-fault injection, deadlines, retries).  Without a visible card and without
-``--device cpu`` it stops with an error; it never falls back to the CPU.
+quick functional serve; weights are random from the engine's seed.
+``--disagg`` serves through a prefill role and a decode role on the same
+device, with KV page migration between their pools (``--prefill-slots``,
+``--decode-slots``); ``--fault-plan PRESET:SEED``, ``--deadline-ticks``
+and ``--max-retries`` turn on the resilience layer, which reports what it
+did (and which requests failed, structurally) under ``resil`` in
+``--json``.  The flags and the ``[serve]`` lines are the JAX package's
+launcher's, less the mesh ones (``--mesh``, ``--prefill-devices``,
+``--decode-devices``), which wait for the shard layer's port.  Without a
+visible card and without ``--device cpu`` it stops with an error; it never
+falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ MAX_LEN = 128
 
 
 def _parser() -> argparse.ArgumentParser:
+    from repro_torch.resil import PRESETS as RESIL_PRESETS
     from repro_torch.sched.workload import PRESETS
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve",
                                  description=__doc__.split("\n")[0])
@@ -63,6 +70,27 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-pool-pages", type=int, default=None,
                     help="page-pool size (small pools exercise admission "
                          "control and preemption instead of crashing)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: a prefill role and a "
+                         "decode role with KV page migration "
+                         "(repro_torch.disagg), on the same device")
+    ap.add_argument("--prefill-slots", type=int, default=4,
+                    help="prefill-role batch slots (with --disagg)")
+    ap.add_argument("--decode-slots", type=int, default=4,
+                    help="decode-role batch slots (with --disagg)")
+    ap.add_argument("--fault-plan", default=None, metavar="PRESET:SEED",
+                    help="inject deterministic faults (repro_torch.resil): "
+                         "one of " + ", ".join(
+                             sorted(k for k in RESIL_PRESETS if k != "none"))
+                         + "; e.g. drop-handoff:3")
+    ap.add_argument("--deadline-ticks", type=int, default=None,
+                    help="per-request completion budget in scheduler "
+                         "ticks; missed deadlines become structured "
+                         "RequestFailed results, not hangs")
+    ap.add_argument("--max-retries", type=int, default=None,
+                    help="recompute re-admissions allowed per request "
+                         "before it fails with 'retries_exhausted' "
+                         "(default 2 when the resil layer is on)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace_event JSON "
                          "timeline of every serving seam (repro_torch.obs); "
@@ -75,8 +103,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="wrap the serve in a torch.profiler capture "
                          "(Chrome trace of host and device activity)")
     ap.add_argument("--json", default=None, metavar="PATH",
-                    help="write the run's metrics as machine-readable "
-                         "JSON (with provenance)")
+                    help="write the run's metrics, resil and role summary "
+                         "as machine-readable JSON (with provenance)")
     ap.add_argument("--report", default=None, metavar="PATH",
                     help="write an obs.analyze TraceReport of this serve: "
                          "per-request critical paths, queueing split, "
@@ -89,6 +117,31 @@ def _parser() -> argparse.ArgumentParser:
                          "(scheduler-tick units); the verdict is printed "
                          "and embedded in --report")
     return ap
+
+
+def _resil(ap, args) -> Optional[dict]:
+    """The resilience layer's config from --fault-plan / --deadline-ticks
+    / --max-retries (the watchdog audits every 8 ticks), or None when none
+    is given."""
+    from repro_torch.resil import FaultPlan
+    if args.fault_plan is None and args.deadline_ticks is None \
+            and args.max_retries is None:
+        return None
+    if args.deadline_ticks is not None and args.deadline_ticks < 1:
+        ap.error("--deadline-ticks must be >= 1")
+    if args.max_retries is not None and args.max_retries < 0:
+        ap.error("--max-retries must be >= 0")
+    resil = {"watchdog_every": 8}
+    if args.fault_plan is not None:
+        try:
+            resil["fault_plan"] = FaultPlan.parse(args.fault_plan)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.deadline_ticks is not None:
+        resil["deadline_ticks"] = args.deadline_ticks
+    if args.max_retries is not None:
+        resil["max_retries"] = args.max_retries
+    return resil
 
 
 def _tracer(ap, args, slo):
@@ -161,6 +214,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             slo = SLOSpec.parse(args.slo)
         except ValueError as e:
             ap.error(str(e))
+    resil = _resil(ap, args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -187,6 +241,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         overrides["prompt_len"] = (args.prompt_len, args.prompt_len)
     arrivals = generate(WorkloadSpec.preset(args.workload, **overrides))
 
+    disagg = None
+    if args.disagg:
+        disagg = {"prefill_slots": args.prefill_slots,
+                  "decode_slots": args.decode_slots}
     tracer = _tracer(ap, args, slo)
     sess = eng.session(batch_slots=args.slots, max_len=MAX_LEN,
                        kv_cache=args.kv_cache,
@@ -194,27 +252,74 @@ def main(argv: Optional[List[str]] = None) -> int:
                        scheduler=SchedConfig(
                            policy=args.policy, chunk=args.chunk,
                            prefix_cache=args.prefix_cache),
-                       obs=tracer)
-    paged = sess.alloc is not None
+                       disagg=disagg, resil=resil, obs=tracer)
+    pre = sess.pre if args.disagg else sess
+    paged = pre.alloc is not None
     print(f"[serve] workload={args.workload} seed={args.seed} "
-          f"kv={'paged' if paged else 'full'} chunk={sess.chunk} "
-          f"policy={args.policy}")
+          f"kv={'paged' if paged else 'full'} chunk={pre.chunk} "
+          f"policy={args.policy}" + (" disagg" if args.disagg else ""))
+    if resil is not None:
+        print(f"[serve] resil: fault_plan={args.fault_plan or 'none'} "
+              f"deadline_ticks={args.deadline_ticks} "
+              f"max_retries={resil.get('max_retries', 2)}")
     t0 = time.perf_counter()
+    # injected faults and deadlines make partial completion an expected
+    # outcome: report it instead of raising
     with profile_trace(args.profile_dir):
-        sess.run_workload(arrivals)
+        sess.run_workload(
+            arrivals, on_incomplete="warn" if resil is not None else "raise")
     dt = time.perf_counter() - t0
-    m = summarize(sess.records, dt, sess.stats["steps"])
+    rsumm = sess.resil_summary()
+    if args.disagg:
+        m = summarize(sess.records, dt,
+                      sess.pre.stats["steps"] + sess.dec.stats["steps"],
+                      roles=sess.role_stats(), resil=rsumm)
+    else:
+        m = summarize(sess.records, dt, sess.stats["steps"], resil=rsumm)
     print(f"[serve] {m['completed']}/{m['requests']} requests, "
           f"{m['tokens']} tokens, {m['tok_per_s']:.1f} tok/s, "
           f"goodput {m['goodput_req_per_s']:.2f} req/s "
           f"({m['steps']} model calls)")
+    if rsumm is not None:
+        line = (f"[serve] resil: shed {rsumm['shed']}, retries "
+                f"{rsumm['retries']}, deadline misses "
+                f"{rsumm['deadline_miss']}, failed {len(sess.failed)}")
+        if rsumm.get("faults"):
+            line += ", injected " + ", ".join(
+                f"{k}={v}" for k, v in sorted(rsumm["faults"].items()))
+        print(line)
+        for f in sess.failed:
+            print(f"[serve]   {f!r}")
     if m["ttft_s"]:
         print(f"[serve] TTFT p50 {m['ttft_s']['p50']*1e3:.0f} ms / "
               f"p99 {m['ttft_s']['p99']*1e3:.0f} ms; "
               f"preemptions {m['preemptions']}, "
               f"prefix pages reused {m['prefix_pages_reused']}")
     pages = None
-    if paged:
+    if args.disagg:
+        roles, hand = m["roles"], m.get("handoff")
+        line = (f"[serve] roles: prefill {roles['prefill']['steps']} "
+                f"steps ({roles['prefill']['utilization'] or 0:.0%} busy),"
+                f" decode {roles['decode']['steps']} steps "
+                f"({roles['decode']['utilization'] or 0:.0%} busy)")
+        if hand:
+            line += (f"; handoffs {hand['count']}, mean latency "
+                     f"{hand['latency_s']['mean']*1e3:.1f} ms, "
+                     f"{hand['migrated_bytes']} bytes migrated")
+        print(line)
+        # the prefill role pins prompt pages into its prefix cache, which
+        # outlive the requests by design, as below
+        cached = sess.pre.prefix.releasable(sess.pre.alloc) \
+            if sess.pre.prefix is not None else 0
+        pages = {"prefill_peak": sess.pre.stats["pages_peak"],
+                 "decode_peak": sess.dec.stats["pages_peak"],
+                 "cached": cached,
+                 "leaked": sess.pre.alloc.in_use + sess.dec.alloc.in_use
+                 - cached}
+        print(f"[serve] pages: prefill peak {pages['prefill_peak']} / "
+              f"decode peak {pages['decode_peak']}, cached {cached}, "
+              f"leaked {pages['leaked']}")
+    elif paged:
         # the prefix cache's own pins outlive the requests by design: a
         # page owned by anything else once every request is done leaked
         cached = sess.prefix.releasable(sess.alloc) \
@@ -244,8 +349,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             "provenance": provenance(
                 config=cfg.name, mode=args.compress or "dense",
                 seed=args.seed, backend=backend, device=device,
-                workload=args.workload),
+                workload=args.workload, disagg=bool(args.disagg)),
             "metrics": m,
+            "failed": [{"rid": f.rid, "reason": f.reason,
+                        "retries": f.retries}
+                       for f in (sess.failed if resil is not None else [])],
             "pages": pages,
         }
         if tracer is not None:

@@ -89,6 +89,7 @@ class SchedEntry:
     hashes: Optional[list] = None  # prompt page hashes, computed once
     deadline_tick: Optional[int] = None  # tick it must finish by (None:
     #                             # no deadline; the resilience layer's)
+    retries: int = 0              # re-admissions after faults / recovery
 
 
 class Scheduler:

@@ -1,6 +1,7 @@
 """The port stands alone: importing it (and the chip smoke script) loads
-neither JAX nor the reference package, and its entry point refuses to run
-on the CPU unless asked to."""
+neither JAX nor the reference package (the disaggregated and resilience
+layers included), and its entry point refuses to run on the CPU unless
+asked to."""
 import os
 import pathlib
 import subprocess
@@ -29,6 +30,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.launch.serve, repro_torch.obs, repro_torch.sched\n"
         "from repro_torch.sched import workload, metrics, prefix\n"
         "from repro_torch.obs import analyze, trace, recorder, timing\n"
+        "import repro_torch.disagg, repro_torch.resil\n"
+        "from repro_torch.disagg import session as dsession, migrate, router\n"
+        "from repro_torch.resil import faults, policy, health\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -81,3 +85,6 @@ def test_launcher_help_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--prefix-cache" in proc.stdout and "--device" in proc.stdout
+    for flag in ("--disagg", "--prefill-slots", "--decode-slots",
+                 "--fault-plan", "--deadline-ticks", "--max-retries"):
+        assert flag in proc.stdout, flag
