@@ -55,7 +55,15 @@ Phases, each of which exits non-zero when it fails:
    count;
 8. kernel, plain-version and library times (CUDA events, median, L2
    flushed) beside the least time the card needs for the same work (K2
-   and K3 at contexts 37, 256, 2048 and 8192);
+   and K3 at contexts 37, 256, 2048 and 8192); then the paper's own model
+   (``ap emulator``, no kernel: plain tensor ops): the bit-level AP
+   emulator at 96 x 200, coded and bit-serial, equal to the CPU's (out,
+   rounds, counters, CAM image), AlexNet FC6 (coded, 4096 x 9216, Table
+   1's configuration) and FC8 (bit-serial, 1000 x 4096) at full size
+   through ``Engine.estimate(backend="ap-emulator")``, equal to the
+   integer oracle, with ``cycle-sim``'s closed-form cycles, each layer's
+   PUs, CAM size, AP ops and wall time logged; the ``cuda`` backend's
+   run_fc equal to apply_fc; Table 1's AIDA / EIE ratios;
 9. the serving path: llama3-8b at full width, ``Engine.compress(aida
    0.25)`` then four requests served at chunk 1 and at chunk 8 (tokens
    equal up to near-tie flips; the logits' drift logged, and which ops
@@ -1396,6 +1404,123 @@ def k6_kernels_a_call(dev):
 
 
 # --------------------------------------------------------------- serve
+AP_SMALL = (96, 200)              # card vs CPU, both modes, m = n = 4
+AP_LAYERS = (                     # (name, n_out, n_in, w / b density, mode)
+    ("alexnet-fc6", 4096, 9216, 0.09, 0.35, "coded"),     # Table 1's
+    ("alexnet-fc8", 1000, 4096, 0.25, 0.38, "bitserial"))
+
+
+def _ap_problem(rng, n_out, n_in, w_density, b_density, mode):
+    """An FCProblem of seed-made integers: coded, 4-bit codes (nonzero
+    where drawn) over codebooks of 16 with cents[0] = 0 and the rest in
+    -99..99; bit-serial, signed 4-bit operands (m = n = 4)."""
+    import numpy as np
+    from repro_torch.api import FCProblem
+
+    def draw(shape, density, signed):
+        v = rng.integers(1, 16, size=shape)
+        if signed:
+            v = v * rng.choice(np.array([-1, 1]), size=shape)
+        return v * (rng.random(shape) < density)
+
+    w = draw((n_out, n_in), w_density, mode == "bitserial")
+    b = draw((n_in,), b_density, mode == "bitserial")
+    if mode == "bitserial":
+        return FCProblem(w=w, b=b, m=4, n=4)
+    cents_w = np.concatenate([[0], rng.integers(-99, 100, 15)])
+    cents_a = np.concatenate([[0], rng.integers(-99, 100, 15)])
+    return FCProblem(w=w, b=b, m=4, n=4, coded=True, cents_w=cents_w,
+                     cents_a=cents_a)
+
+
+def _ap_run(prob, device):
+    from repro_torch.core import aida_fc
+    if prob.coded:
+        return aida_fc.aida_fc_layer_coded(prob.w, prob.b, prob.cents_w,
+                                           prob.cents_a, device=device)
+    return aida_fc.aida_fc_layer(prob.w, prob.b, prob.m, prob.n,
+                                 device=device)
+
+
+def ap_emulator_phase(dev):
+    """The paper's own model on the card (no kernel of the port: the
+    emulator is plain tensor ops, as the JAX package's is numpy).  At 96 x
+    200, coded and bit-serial, the card's emulator must give the CPU's
+    out, rounds, eight counters and final CAM image; AlexNet FC6 (coded,
+    Table 1's configuration) and FC8 (bit-serial) at full size through
+    ``Engine.estimate(backend="ap-emulator")`` must give the integer
+    oracle's out exactly, ``cycle-sim``'s closed-form cycles and
+    ``aida_sim.reduction_rounds`` rounds; the ``cuda`` backend's run_fc on
+    a llama3-8b aida projection must equal apply_fc on it; Table 1's
+    ratios on the card's engine must equal the CPU engine's."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, get_backend
+    from repro_torch.core import aida_sim, sparse_fc
+    for mode in ("coded", "bitserial"):
+        prob = _ap_problem(np.random.default_rng(0), *AP_SMALL, 0.3, 0.35,
+                           mode)
+        card, cpu = _ap_run(prob, dev), _ap_run(prob, "cpu")
+        same = {"out": torch.equal(card.out.cpu(), cpu.out),
+                "rounds": card.rounds == cpu.rounds,
+                "counters": card.counters == cpu.counters,
+                "cam": np.array_equal(card.ap.image(), cpu.ap.image())}
+        log(f"ap emulator {mode} {AP_SMALL[0]} x {AP_SMALL[1]}: card vs "
+            f"CPU {same}, {card.cycles} cycles, {card.rounds} rounds")
+        if not all(same.values()):
+            raise AssertionError(f"ap emulator {mode}: the card differs "
+                                 f"from the CPU: {same}")
+        del card, cpu
+    eng = Engine()
+    for name, n_out, n_in, wd, bd, mode in AP_LAYERS:
+        prob = _ap_problem(np.random.default_rng(0), n_out, n_in, wd, bd,
+                           mode)
+        emu = eng.estimate(backend="ap-emulator", workload=prob)
+        sim = eng.estimate(backend="cycle-sim", workload=prob)
+        rounds = aida_sim.reduction_rounds(prob.max_row_nnz)
+        c = emu["counters"]
+        ops = c["compare"] + c["write"] + c["move"] + c["if_match"]
+        row = {"mode": mode, "pus": emu["pus"], "bits": emu["bits"],
+               "cam_mb": emu["pus"] * emu["bits"] / 1e6,
+               "cycles": emu["cycles"], "closed_form": sim["cycles"],
+               "rounds": emu["rounds"], "nnz_b": emu["nnz_b"],
+               "max_row_nnz": emu["max_row_nnz"], "ap_ops": ops,
+               "encode_load_s": emu["seconds"]["encode_load"],
+               "run_s": emu["seconds"]["run"],
+               "ap_ops_per_s": ops / emu["seconds"]["run"]}
+        log(f"ap emulator {name} {n_out} x {n_in}: " + json.dumps(row))
+        if not emu["exact"]:
+            raise AssertionError(f"ap emulator {name}: out differs from "
+                                 "the integer oracle")
+        if emu["cycles"] != sim["cycles"] or emu["rounds"] != rounds:
+            raise AssertionError(
+                f"ap emulator {name}: {emu['cycles']} cycles and "
+                f"{emu['rounds']} rounds, closed form {sim['cycles']} and "
+                f"{rounds}")
+        del emu
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, n_out, n_in = PROJECTIONS[0]
+    leaf = sparse_fc.compress(_k1_weight(gen, dev, n_out, n_in, "wq"),
+                              mode="aida", density=0.25)
+    x = torch.randn((4, n_in), generator=gen, device=dev)
+    if not torch.equal(get_backend("cuda").run_fc(leaf, x),
+                       sparse_fc.apply_fc(leaf, x)):
+        raise AssertionError("ap emulator: the cuda backend's run_fc "
+                             "differs from apply_fc")
+    t1 = {where: e.estimate(backend="cycle-sim", workload="table1")
+          for where, e in (("card", eng), ("cpu", Engine(device="cpu")))}
+    ratios = {where: (t["aida"]["pp_gops"] / t["eie"]["pp_gops"],
+                      t["aida"]["thrpt_inf_s"] / t["eie"]["thrpt_inf_s"])
+              for where, t in t1.items()}
+    log(f"ap emulator table 1: AIDA {t1['card']['aida']['pp_gops']} GOP/s "
+        f"vs EIE {t1['card']['eie']['pp_gops']} (x{ratios['card'][0]}), "
+        f"{t1['card']['aida']['thrpt_inf_s']} vs "
+        f"{t1['card']['eie']['thrpt_inf_s']} inferences/s "
+        f"(x{ratios['card'][1]})")
+    if ratios["card"] != ratios["cpu"]:
+        raise AssertionError(f"ap emulator table 1: {ratios}")
+
+
 def _llama(layers):
     import dataclasses
     from repro_torch import get
@@ -1467,6 +1592,10 @@ def _serve(dev, eng, label, fc_kernel, chunk, kv_cache=None):
     if sess.alloc is None and sess.stats["chunk"] != 1:
         raise AssertionError(f"{label}: a full-cache session must serve at "
                              f"chunk 1, got {sess.stats['chunk']}")
+    if sess.backend.name != eng.backend.name:
+        raise AssertionError(f"{label}: the session steps through "
+                             f"{sess.backend.name!r}, not the engine's "
+                             f"{eng.backend.name!r}")
     for r in _requests(eng.cfg):
         sess.submit(r)
     sess.emitted = {}
@@ -3286,6 +3415,7 @@ def main(argv=None) -> int:
     errs["lut_product_matmul"], times["lut_product_matmul"], k6_launches = \
         _timed("K6", k6_phase, dev, flush)
     del flush
+    _timed("ap emulator", ap_emulator_phase, dev)
     layers = args.layers or 32
     launches, by_rows, eng, paged1 = _timed("serve aida", serve_phase, dev,
                                             layers)

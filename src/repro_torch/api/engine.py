@@ -6,9 +6,19 @@
     eng = Engine(get("llama3-8b"))                 # random init, on the card
     eng.compress(CompressionSpec(mode="aida", density=0.25))
     results = eng.serve([Request(prompt=[1, 2, 3], max_new=8)])
+    table1 = eng.estimate(backend="cycle-sim", workload="table1")
 
 The engine runs on the card unless the caller asks for the CPU
-(``device="cpu"``, where every kernel takes its plain version).
+(``device="cpu"``, where every kernel takes its plain version).  A
+session takes its decode step from the active backend (``backend=``:
+`torch-dense` or `cuda`, picked from the compression when not pinned).
+Both give `models.model.decode_step`, so the compression decides which
+kernels run: compressed projections reach K1 / K4 / K5 through
+`models.layers.dense` on either.  What the choice adds is the pin's
+checks: a pinned backend refuses modes it cannot run in ``compress`` and
+refuses to serve without batched decode.  ``estimate`` routes to a
+cycle-accounting backend (`ap-emulator` on the engine's device,
+`cycle-sim` on the host).
 ``serve(..., disagg=True)`` splits serving into a prefill role and a
 decode role on the same device (`repro_torch.disagg`); ``resil=`` turns on
 the resilience layer (`repro_torch.resil`).
@@ -21,25 +31,22 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from repro_torch.api import compress as compress_mod
+from repro_torch.api.registry import CapabilityError, Executor, get_backend
 from repro_torch.api.session import Session
-from repro_torch.api.spec import CompressionSpec, Request, Result
+from repro_torch.api.spec import CompressionSpec, FCProblem, Request, Result
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
 
 
-def resolve_device(device) -> torch.device:
-    """None -> the first card; raises when no card is visible (the port
-    never falls back to the CPU on its own)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is visible; pass "
-                               "device='cpu' to run the plain versions")
-        device = "cuda"
-    return torch.device(device)
+def _spec_modes(spec: CompressionSpec) -> set:
+    """Modes a spec actually executes ('skip' leaves leaves raw)."""
+    return {spec.mode} | {m for m in spec.overrides.values() if m != "skip"}
 
 
 class Engine:
     def __init__(self, cfg: Union[ArchConfig, str, None] = None,
-                 params=None, *, device=None, seed: int = 0):
+                 params=None, *, backend: Optional[str] = None,
+                 device=None, seed: int = 0):
         if isinstance(cfg, str):
             from repro_torch.configs import get
             cfg = get(cfg)
@@ -49,6 +56,7 @@ class Engine:
             # raw f32 products (lm_head) in full f32, as in the reference
             torch.backends.cuda.matmul.allow_tf32 = False
         self._params = params
+        self._backend_name = backend
         self._seed = seed
         self.compression: Optional[CompressionSpec] = None
         self.stats: Optional[dict] = None
@@ -66,6 +74,17 @@ class Engine:
             self._params = M.init_params(self.cfg, gen)
         return self._params
 
+    @property
+    def backend(self) -> Executor:
+        """Active decode backend: the explicit choice, else 'cuda' once
+        compressed to a non-dense mode, else 'torch-dense'."""
+        if self._backend_name:
+            return get_backend(self._backend_name)
+        if self.compression is not None \
+                and _spec_modes(self.compression) - {"dense"}:
+            return get_backend("cuda")
+        return get_backend("torch-dense")
+
     def compress(self, spec: Union[CompressionSpec, str, None] = None,
                  *, verbose=None, **kw) -> "Engine":
         """Deep-Compression of every eligible projection per ``spec``
@@ -74,6 +93,19 @@ class Engine:
         spec = CompressionSpec.coerce(spec)
         if kw:
             spec = dataclasses.replace(spec, **kw)
+        if self._backend_name:  # explicit pin: the backend must run the modes
+            caps = self.backend.caps
+            wanted = _spec_modes(spec)
+            if len(wanted) > 1 and not caps.per_layer_override:
+                raise CapabilityError(
+                    f"backend {self._backend_name!r} does not support "
+                    "per-layer mode overrides")
+            missing = wanted - set(caps.modes)
+            if missing:
+                raise CapabilityError(
+                    f"backend {self._backend_name!r} cannot execute modes "
+                    f"{sorted(missing)}; its modes are {caps.modes} "
+                    "(drop the explicit backend= pin to auto-route)")
         with torch.no_grad():
             self._params, self.stats = compress_mod.compress_params(
                 self.params, spec, verbose=verbose)
@@ -107,9 +139,11 @@ class Engine:
         `resil.ResilState` carries the degradation ladder across
         sessions: once sustained page pressure has pushed it to level 2,
         this session's pool is int8.  ``resil=None`` is the path without
-        the layer."""
+        the layer.  A pinned backend without batched decode raises
+        `CapabilityError`."""
         if self.cfg is None:
             raise ValueError("serving needs an ArchConfig")
+        backend = self.backend  # the session asks it for the decode step
         if resil is not None:
             from repro_torch import resil as rsl
             if isinstance(resil, rsl.ResilState):
@@ -126,12 +160,13 @@ class Engine:
                 self.cfg, self.params, disagg=disagg, device=self.device,
                 max_len=max_len, seed=seed, page_size=page_size,
                 kv_dtype=kv_dtype, scheduler=scheduler, resil=resil,
-                obs=obs)
+                obs=obs, backend=backend)
         return Session(self.cfg, self.params, batch_slots=batch_slots,
                        max_len=max_len, device=self.device, seed=seed,
                        kv_cache=kv_cache, page_size=page_size,
                        kv_pool_pages=kv_pool_pages, kv_dtype=kv_dtype,
-                       scheduler=scheduler, resil=resil, obs=obs)
+                       scheduler=scheduler, resil=resil, obs=obs,
+                       backend=backend)
 
     def serve(self, requests: Sequence[Union[Request, List[int]]], *,
               batch_slots: int = 4, max_len: int = 256,
@@ -151,3 +186,22 @@ class Engine:
                 req = Request(prompt=list(req), rid=rid)
             sess.submit(req)
         return sess.run(max_steps=max_steps)
+
+    def estimate(self, backend: str = "cycle-sim",
+                 workload: Union[FCProblem, str, Sequence, None] = None,
+                 **kw) -> dict:
+        """Cycle / perf accounting through a cost-model backend.
+
+        ``workload``: an FCProblem (a concrete FC instance: 'ap-emulator'
+        runs it bit by bit on the engine's device, 'cycle-sim' prices it in
+        closed form; the two agree exactly under the EMULATOR microcode),
+        or a named network ('alexnet-fc', 'ctc-lstm', 'table1') for
+        'cycle-sim'.
+        """
+        ex = get_backend(backend)
+        if not ex.caps.cycle_accounting:
+            raise CapabilityError(
+                f"backend {backend!r} has no cycle accounting")
+        if workload is None:
+            workload = "alexnet-fc"
+        return ex.estimate(workload, device=self.device, **kw)

@@ -18,6 +18,12 @@ request completes.  Where every layer is windowed (h2o-danube, mixtral),
 a page that has slid wholly behind the widest window is freed after each
 step (SWA reclamation), so a sequence holds O(window) pages.
 
+The decode step is the backend's (``backend=``, an `api.registry`
+name or Executor; `torch-dense` when not given): the Engine passes its
+active backend, and both decode backends give `models.model.decode_step`,
+whose compressed projections reach the CUDA kernels through
+`models.layers.dense`.
+
 Traffic: ``run_workload`` serves ``[(arrival_step, Request)]`` (see
 ``sched.workload``), fast-forwarding idle gaps; every request leaves a
 lifecycle record in ``records`` (the JAX package's schema) that
@@ -66,6 +72,7 @@ from repro_torch import kvstore as kvs
 from repro_torch import obs as obs_mod
 from repro_torch import resil as rsl
 from repro_torch import sched as schd
+from repro_torch.api.registry import get_backend
 from repro_torch.api.spec import Request, Result
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache as kvc
@@ -102,10 +109,16 @@ class Session:
                  kv_cache: Optional[str] = None, page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, scheduler=None,
-                 resil=None, obs=None):
+                 resil=None, obs=None, backend=None):
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is an encoder: it has no decode "
                              "step to serve")
+        # the decode step comes from the backend (a name or an Executor;
+        # None: torch-dense); one without batched decode raises here
+        if backend is None or isinstance(backend, str):
+            backend = get_backend(backend or "torch-dense")
+        self.backend = backend
+        self._step = backend.make_decode_step(cfg)
         self.cfg, self.params = cfg, params
         self.device = torch.device(device)
         self.slots = batch_slots
@@ -726,8 +739,8 @@ class Session:
             tokens[i] = self.slot_pending[i][0] if self.slot_pending[i] \
                 else self._next_token(i, entry)
         with self._step_ctx("decode"), torch.no_grad():
-            self.state, logits = M.decode_step(
-                self.cfg, self.params, self.state,
+            self.state, logits = self._step(
+                self.params, self.state,
                 torch.as_tensor(tokens, device=self.device))
             # the copy to the host waits for the card: every time read
             # after it is a real one, not an enqueue time

@@ -1,8 +1,15 @@
-"""Facade value types: the compression recipe, requests and results."""
+"""Facade value types: the compression recipe, FC workload descriptions,
+requests and results (numpy and the standard library only, so the api
+package imports it eagerly without the model zoo)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Mapping, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core import acsr
 
 #: The five FC operating points (``aida`` = the paper's full configuration).
 MODES: Tuple[str, ...] = ("dense", "int8", "codebook4", "acsr", "aida")
@@ -53,6 +60,55 @@ class CompressionSpec:
             return cls(mode=spec)
         raise TypeError(f"cannot coerce {type(spec).__name__} "
                         "to CompressionSpec")
+
+
+@dataclasses.dataclass
+class FCProblem:
+    """One concrete FC-layer instance (the paper's C = f(W x B) primitive).
+
+    ``coded=False``: ``w``/``b`` are signed integers with |w| < 2^m,
+    |b| < 2^n (bit-serial Fig. 3 mode).  ``coded=True``: ``w``/``b`` are
+    codebook indices (0 = structural zero) and ``cents_w``/``cents_a`` are
+    the integer codebooks (bit-parallel perfect-induction mode).  Host
+    values, numpy int64.
+    """
+    w: np.ndarray
+    b: np.ndarray
+    m: int = 4
+    n: int = 4
+    activation: Optional[str] = "relu"
+    coded: bool = False
+    cents_w: Optional[np.ndarray] = None
+    cents_a: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        self.w = np.asarray(self.w, np.int64)
+        self.b = np.asarray(self.b, np.int64)
+        if self.coded and (self.cents_w is None or self.cents_a is None):
+            raise ValueError("coded FCProblem needs cents_w and cents_a")
+
+    # Derived quantities shared by the emulator and the closed-form model,
+    # so both backends agree on them by construction.
+    @property
+    def nnz_b(self) -> int:
+        return int((self.b != 0).sum())
+
+    @property
+    def max_row_nnz(self) -> int:
+        return acsr.max_row_nnz(self.w)
+
+    @property
+    def prod_bits(self) -> int:
+        """Coded-mode product wordlength from the codebook outer product."""
+        if not self.coded:
+            return self.m + self.n
+        pmax = int(np.abs(np.outer(np.asarray(self.cents_w, np.int64),
+                                   np.asarray(self.cents_a, np.int64))).max())
+        return max(1, math.ceil(math.log2(pmax + 1)))
+
+
+#: Named cycle-model workloads understood by Engine.estimate.
+WORKLOADS: Tuple[str, ...] = ("alexnet-fc", "ctc-lstm", "table1")
 
 
 @dataclasses.dataclass

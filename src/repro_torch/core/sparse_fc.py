@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.api import dispatch
 from repro_torch.core import acsr as acsr_mod
 from repro_torch.core import codebook as cb
 from repro_torch.core import quant as q
@@ -111,6 +112,9 @@ def apply_fc(layer: CompressedFC, x: torch.Tensor,
         raise ValueError(layer.mode)
     y = y[:, : layer.shape[0]]
     return y[0] if squeeze else y
+
+
+dispatch.register_applier(CompressedFC, apply_fc)
 
 
 def dense_equivalent(layer: CompressedFC) -> torch.Tensor:

@@ -248,7 +248,7 @@ class DisaggSession:
     def __init__(self, cfg, params, *, disagg, device, max_len: int = 256,
                  seed: int = 0, page_size: int = 16,
                  kv_dtype: Optional[str] = None, scheduler=None, resil=None,
-                 obs=None):
+                 obs=None, backend=None):
         d = DisaggConfig.coerce(disagg)
         if d.prefill_devices is not None:
             raise NotImplementedError(
@@ -270,7 +270,8 @@ class DisaggSession:
         self.tracer = obs if obs is not None else obs_mod.NULL
         common = dict(max_len=max_len, device=device, seed=seed,
                       kv_cache="paged", page_size=page_size,
-                      kv_dtype=kv_dtype, resil=self.resil, obs=obs)
+                      kv_dtype=kv_dtype, resil=self.resil, obs=obs,
+                      backend=backend)
         self.pre = PrefillSession(
             cfg, params, d.prefill_slots, kv_pool_pages=d.prefill_pool_pages,
             router=self.router, on_handoff=self._on_handoff, **common)

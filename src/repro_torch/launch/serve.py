@@ -202,7 +202,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.api import CompressionSpec, Engine
-    from repro_torch.api.engine import resolve_device
+    from repro_torch.core.device import resolve_device
     from repro_torch.configs import get, reduced
     from repro_torch.obs import SLOSpec, profile_trace, provenance
     from repro_torch.sched import (SchedConfig, WorkloadSpec, generate,

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sparse_fc import CompressedFC, apply_fc
+from repro_torch.api import dispatch as _dispatch
 from repro_torch.kernels.ref import apply_activation
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -34,15 +34,18 @@ def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def dense(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
           activation: Optional[str] = None) -> torch.Tensor:
-    """act(x @ w + bias).  ``w`` is a raw [d_in, d_out] matrix or a
-    CompressedFC.  A compressed leaf takes x in f32, fuses bias and
-    activation into its kernel's epilogue and casts the output to bf16; a
-    raw matrix multiplies in bf16 with f32 accumulation, adds the bias in
-    f32, then casts to bf16 and applies the activation."""
-    if isinstance(w, CompressedFC):
+    """act(x @ w + bias).  ``w`` is a raw [d_in, d_out] matrix or a leaf
+    registered with `repro_torch.api.dispatch` (a CompressedFC: the
+    aida, acsr, int8, codebook4 and dense modes).  A compressed leaf takes
+    x in f32, fuses bias and activation into its kernel's epilogue and
+    casts the output to bf16; a raw matrix multiplies in bf16 with f32
+    accumulation, adds the bias in f32, then casts to bf16 and applies the
+    activation."""
+    apply = _dispatch.applier_for(w)
+    if apply is not None:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).float()
-        y = apply_fc(w, x2, bias=bias, activation=activation)
+        y = apply(w, x2, bias=bias, activation=activation)
         return y.reshape(*lead, y.shape[-1]).to(COMPUTE_DTYPE)
     y = _bf16_matmul(x, w)
     if bias is not None:

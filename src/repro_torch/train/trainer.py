@@ -15,7 +15,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.api.engine import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw

@@ -1,7 +1,8 @@
 """The port stands alone: importing it (and the chip smoke script) loads
 neither JAX nor the reference package (the disaggregated and resilience
-layers included), and its entry point refuses to run on the CPU unless
-asked to."""
+layers, the backend registry and the emulator and cycle models
+included), and its entry point refuses to run on the CPU unless asked
+to."""
 import os
 import pathlib
 import subprocess
@@ -33,6 +34,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.disagg, repro_torch.resil\n"
         "from repro_torch.disagg import session as dsession, migrate, router\n"
         "from repro_torch.resil import faults, policy, health\n"
+        "from repro_torch.api import registry, backends, dispatch\n"
+        "from repro_torch.core import acsr, associative, aida_fc\n"
+        "from repro_torch.core import aida_sim, eie_sim, device\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
