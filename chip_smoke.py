@@ -133,7 +133,22 @@ Phases, each of which exits non-zero when it fails:
     exceed, then ``Engine.compress(aida 0.25).serve`` of the
     four requests through K1 (8 launches per layer and step), then a
     reduced rwkv6-7b served on the card and on the CPU (same greedy
-    tokens up to near-tie flips).
+    tokens up to near-tie flips);
+14. the mesh (``mesh bands`` right after phase 5, ``mesh serve`` after
+    phase 9's disaggregated serves): llama3-8b's seven projections in
+    aida, int8 and codebook4 cut into tp = 2 and 4 row bands, each band
+    launched with the whole matrix's split (K1 gather at 4 columns, wide
+    at 32, K4 / K5 at 4 and 32 rows), the bands concatenated bit for bit
+    the whole launch, and K2 / K3 head groups (Hkv 8, contexts 37 and
+    2048) bit for bit the whole, each band's ms beside the whole's; then
+    ranks in processes of their own (``shard.comm.spawn``): a mesh of
+    one over nccl, its collectives exact and its serve bit for bit the
+    plain session's, and two ranks sharing the card over gloo serving
+    llama3-8b at full width cut to 4 layers, aida 0.25, chunk 8, the four
+    requests: rank 0's tokens and logits bit for bit the single-device
+    serve's, both ranks the same tokens, each rank's launches as its
+    layers and steps say, ms/step, kernels/step and gather ms/step
+    logged.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
@@ -3328,6 +3343,279 @@ def rwkv6_cross_check(dev):
         + ("identical" if not flips else f"{flips} near-tie flips"))
 
 
+# ---------------------------------------------------------------- mesh
+MESH_TP = (2, 4)
+MESH_LAYERS = 4       # the two-rank serve: llama3-8b at full width
+MESH_ONE_LAYERS = 2   # the nccl mesh of one
+MESH_CONTEXTS = (37, 2048)
+
+
+def _band_bias(bias, n, tp, r):
+    """Rank ``r``'s slice of ``bias`` padded to ``n * tp`` rows."""
+    import torch
+    if bias is None:
+        return None
+    return torch.nn.functional.pad(bias, (0, n * tp - bias.shape[0]))[
+        r * n:(r + 1) * n]
+
+
+def mesh_band_phase(dev, flush):
+    """The shard layer's band launches in one process: llama3-8b's seven
+    projections in aida (K1 gather at 4 columns, K1 wide at 32) and int8 /
+    codebook4 (K4 / K5 at 4 and 32 rows), cut into tp = 2 and 4 row bands
+    (`shard.partition.local_view`), each band launched with the whole's
+    split (``split``), the bands concatenated: bit for bit the whole
+    launch, bias on wq and silu on gate included; then K2 / K3 on head
+    groups (Hkv 8, contexts 37 and 2048, bf16 pages) against the whole.
+    Logs a layer's whole ms beside one band's (rank 0's) per kernel, rows
+    and tp.  These launches compare; they are not the main path's."""
+    import torch
+    from repro_torch.core import sparse_fc as sfc
+    from repro_torch.kvstore.paged_attention import (paged_attention,
+                                                     paged_attention_chunk)
+    from repro_torch.kvstore.pool import PagedKV
+    from repro_torch.shard import partition
+    gen = torch.Generator(device=dev).manual_seed(26)
+    unequal, times = [], {}
+    for name, n_out, n_in in PROJECTIONS:
+        w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
+            n_in ** -0.5
+        act = "silu" if name == "gate" else None
+        bias = torch.randn((n_out,), generator=gen, device=dev) \
+            if name == "wq" else None
+        for mode in ("aida", "int8", "codebook4"):
+            leaf = sfc.compress(w, mode=mode, density=0.25)
+            split = partition.row_axis_len(leaf)
+            for rows in (4, 32):
+                x = torch.randn((rows, n_in), generator=gen, device=dev)
+                kern = _k1_variant(rows) if mode == "aida" else \
+                    {"int8": "int8_matmul", "codebook4": "lut_matmul"}[mode]
+                whole = sfc.apply_fc(leaf, x, bias=bias, activation=act)
+                t_whole, _ = median_ms(lambda: sfc.apply_fc(
+                    leaf, x, bias=bias, activation=act), flush=flush)
+                for tp in MESH_TP:
+                    bands = [partition.local_view(leaf, tp, r)
+                             for r in range(tp)]
+                    n = sfc.stored_rows(bands[0])
+                    outs = [sfc.apply_fc(b, x, bias=_band_bias(
+                        bias, n, tp, r), activation=act, split=split)
+                        for r, b in enumerate(bands)]
+                    got = torch.cat(outs, dim=1)[:, :n_out]
+                    if not torch.equal(got, whole):
+                        unequal.append(f"{kern} {name} rows {rows} tp {tp}")
+                    b0 = _band_bias(bias, n, tp, 0)
+                    t_band, _ = median_ms(lambda: sfc.apply_fc(
+                        bands[0], x, bias=b0, activation=act, split=split),
+                        flush=flush)
+                    key = (kern, rows, tp)
+                    whole_ms, band_ms = times.get(key, (0.0, 0.0))
+                    times[key] = (whole_ms + t_whole, band_ms + t_band)
+                    del bands, outs
+            del leaf
+        del w
+    for (kern, rows, tp), (t_whole, t_band) in sorted(times.items()):
+        log(f"mesh band {kern} one layer (7 projections) rows={rows} "
+            f"tp={tp}: whole_ms={t_whole:.4f} band_ms={t_band:.4f} "
+            f"(x{t_whole / t_band:.2f})")
+    for ctx in MESH_CONTEXTS:
+        q1, pool, table, cur = _k2_inputs(dev, gen, ctx, "bf16")
+        q8, _, _, q_pos = _k3_inputs(dev, gen, ctx, "bf16", 8)
+        scale = 128 ** -0.5
+        hkv, g = pool.k_pages.shape[1], q1.shape[1] // pool.k_pages.shape[1]
+        for kern, fn, q, pos in (
+                ("paged_attention_decode", paged_attention, q1, cur),
+                ("paged_attention_chunk", paged_attention_chunk, q8,
+                 q_pos)):
+            whole = fn(q, pool, table, pos, -1, scale=scale)
+            t_whole, _ = median_ms(lambda: fn(q, pool, table, pos, -1,
+                                              scale=scale), flush=flush)
+            for tp in MESH_TP:
+                hl = hkv // tp
+                parts = []
+                for r in range(tp):
+                    band = PagedKV(*(a[:, r * hl:(r + 1) * hl].contiguous()
+                                     for a in pool[:2]))
+                    qb = q[:, r * hl * g:(r + 1) * hl * g].contiguous()
+                    parts.append((qb, band))
+                got = torch.cat([fn(qb, band, table, pos, -1, scale=scale)
+                                 for qb, band in parts], dim=1)
+                if not torch.equal(got, whole):
+                    unequal.append(f"{kern} ctx {ctx} tp {tp}")
+                qb, band = parts[0]
+                t_band, _ = median_ms(lambda: fn(qb, band, table, pos, -1,
+                                                 scale=scale), flush=flush)
+                log(f"mesh band {kern} ctx={ctx} tp={tp} (Hkv {hkv}, "
+                    f"{hl} a rank): whole_ms={t_whole:.4f} "
+                    f"band_ms={t_band:.4f}")
+    log("mesh bands with the whole's split, concatenated vs the whole "
+        "launch: " + ("all bit-identical" if not unequal
+                      else "; ".join(unequal)))
+    if unequal:
+        raise AssertionError("mesh: bands differ from the whole launch: "
+                             + "; ".join(unequal))
+
+
+def _mesh_serve(eng, mesh, chunk=8):
+    """Serve `_requests` on ``eng`` (over ``mesh`` when given): (results,
+    session, the logits row each token was drawn from, by rid)."""
+    import torch
+    sess = eng.session(batch_slots=4, max_len=256, mesh=mesh,
+                       scheduler={"chunk": chunk})
+    rows = {}
+    emit = sess._emit
+
+    def keep(i, logits_i, now):
+        rows.setdefault(sess.slot_entry[i].req.rid, []).append(
+            torch.from_numpy(logits_i.copy()))
+        emit(i, logits_i, now)
+    sess._emit = keep
+    for r in _requests(eng.cfg):
+        sess.submit(r)
+    res = sess.run()
+    return res, sess, {k: torch.stack(v) for k, v in rows.items()}
+
+
+def _same_serve(a, b):
+    """Tokens and every logits row bit for bit."""
+    import torch
+    return [r.tokens for r in a[0]] == [r.tokens for r in b[0]] and \
+        a[2].keys() == b[2].keys() and \
+        all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+
+
+def _mesh_one_rank(rank, layers):
+    """A mesh of one rank over nccl: its collectives, and its serve against
+    the plain session's on the same engine."""
+    import torch
+    from repro_torch import CompressionSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.shard import comm
+    mesh = make_host_mesh(1, backend="nccl")
+    x = torch.arange(12., device=mesh.device).reshape(3, 4)
+    collectives = torch.equal(comm.all_gather_cat(x, None), x) and \
+        torch.equal(comm.all_reduce_sum(x, None), x) and \
+        comm.all_equal(x)
+    eng = _compressed_engine(mesh.device, _llama(layers),
+                             CompressionSpec(mode="aida", density=0.25),
+                             "mesh of one")
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    got = _mesh_serve(eng, mesh)
+    counts = {k: f.launches for k, f in fns.items()}
+    plain = _mesh_serve(eng, None)
+    return {"collectives": collectives, "equal": _same_serve(got, plain),
+            "launches": counts, "backend": mesh.backend,
+            "device": str(mesh.device)}
+
+
+def _mesh_pair_rank(rank, layers):
+    """One of two ranks sharing the card over gloo: the full-width serve
+    (counted, then again with the gathers timed), and on rank 0 the plain
+    session's serve on the same engine to hold it against."""
+    import torch
+    from repro_torch import CompressionSpec, Request
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.shard import comm, partition
+    mesh = make_host_mesh(2, backend="gloo", device="cuda:0")
+    dev = mesh.device
+    eng = _compressed_engine(dev, _llama(layers), CompressionSpec(
+        mode="aida", density=0.25), f"mesh rank {rank}")
+    warm = eng.session(batch_slots=4, max_len=256, mesh=mesh,
+                       scheduler={"chunk": 8})
+    warm.submit(Request(prompt=[1, 2, 3], max_new=2, rid=0))
+    warm.run()
+    band = warm.params["layers"]["mlp"]["up"]
+    share = (partition.band_bytes(band),
+             partition.band_bytes(eng.params["layers"]["mlp"]["up"]))
+    del warm
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    comm.reset_stats()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = _mesh_serve(eng, mesh)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    gathers = comm.STATS["gathers"]
+    comm.reset_stats(timed=True)
+    timed = _mesh_serve(eng, mesh)
+    gather_s = comm.STATS["seconds"]
+    comm.reset_stats()
+    out = {"steps": got[1].stats["steps"],
+           "prefill_steps": got[1].stats["prefill_steps"], "seconds": dt,
+           "launches": counts, "gathers": gathers, "gather_s": gather_s,
+           "tokens": [r.tokens for r in got[0]],
+           "repeat": _same_serve(got, timed), "band_bytes": share,
+           "nonfinite": got[1].stats["nonfinite_logit_rows"],
+           "leaked": got[1].alloc.in_use}
+    if rank == 0:
+        out["equal"] = _same_serve(got, _mesh_serve(eng, None))
+    return out
+
+
+def mesh_serve_phase(dev):
+    """Tensor-parallel serving on the card, each rank its own process
+    (`shard.comm.spawn`, loading the libraries the build made): a mesh of
+    one over nccl, its serve bit for bit the plain session's; then two
+    ranks sharing the card over gloo, llama3-8b at full width cut to
+    MESH_LAYERS layers, aida 0.25, chunk 8: rank 0's tokens and every
+    logits row bit for bit the single-device serve's, both ranks the same
+    tokens, every rank's launch counts as the layers and steps say, no
+    page leaked.  Returns the launches of both serves (every rank's)."""
+    import torch
+    from repro_torch.shard import comm
+    torch.cuda.empty_cache()
+    one = comm.spawn(1, _mesh_one_rank, (MESH_ONE_LAYERS,),
+                     backend="nccl", timeout=300)[0]
+    log(f"mesh of one over {one['backend']} on {one['device']}: "
+        f"collectives {'exact' if one['collectives'] else 'WRONG'}, serve "
+        f"{'bit-identical to' if one['equal'] else 'DIFFERS from'} the "
+        f"plain session's")
+    if not (one["collectives"] and one["equal"]):
+        raise AssertionError("mesh of one: its collectives or its serve "
+                             "differ")
+    pair = comm.spawn(2, _mesh_pair_rank, (MESH_LAYERS,), backend="gloo",
+                      timeout=600)
+    r0 = pair[0]
+    steps, pre = r0["steps"], r0["prefill_steps"]
+    per = {k: sum(r["launches"][k] for r in pair) / steps
+           for k in r0["launches"] if r0["launches"][k]}
+    band, whole = r0["band_bytes"]
+    log(f"mesh 2 ranks on one card over gloo: llama3-8b {MESH_LAYERS} "
+        f"layers aida chunk 8: {steps} steps ({pre} chunked), "
+        f"{r0['seconds'] * 1e3 / steps:.2f} ms/step, "
+        f"{sum(per.values()):.1f} K1-K3 launches/step over both ranks "
+        f"({json.dumps({k: round(v, 2) for k, v in per.items()})}), "
+        f"{r0['gathers'] / steps:.1f} gathers/step, gather "
+        f"{r0['gather_s'] * 1e3 / steps:.2f} ms/step (host clock, the card "
+        f"synchronised around each gather, in a second serve), a rank's "
+        f"mlp.up band {band / whole:.3f} of the whole's bytes")
+    agree = pair[1]["tokens"] == r0["tokens"]
+    log(f"mesh 2 ranks: rank 0 vs the single-device serve: "
+        f"{'tokens and logits bit-identical' if r0['equal'] else 'DIFFER'};"
+        f" ranks' tokens {'equal' if agree else 'DIFFER'}; tokens "
+        f"{json.dumps(r0['tokens'])}")
+    n_fc = 7 * MESH_LAYERS
+    want = {"acsr_spmv_gather": n_fc * (steps - pre),
+            "acsr_spmv_wide": n_fc * pre,
+            "paged_attention_decode": MESH_LAYERS * (steps - pre),
+            "paged_attention_chunk": MESH_LAYERS * pre}
+    bad = [r for r in pair if {k: v for k, v in r["launches"].items()
+                               if v} != want]
+    if not r0["equal"] or not agree or bad or \
+            not all(r["repeat"] for r in pair) or \
+            any(r["nonfinite"] or r["leaked"] for r in pair):
+        raise AssertionError(f"mesh 2 ranks: the serve differs from the "
+                             f"single device's, between ranks or runs, "
+                             f"leaked, or its launches {r0['launches']} "
+                             f"are not {want}")
+    return {k: one["launches"][k] + sum(r["launches"][k] for r in pair)
+            for k in one["launches"]}
+
+
 def _by_shape(times, launches, key="rows"):
     """A kernel's numbers for the kernels line at each shape the main path
     gives it (an FC kernel's rows, per layer of seven projections; K7 /
@@ -3402,6 +3690,7 @@ def main(argv=None) -> int:
         errs[name], times[name], model_times[name] = _timed(label, phase,
                                                             dev, flush)
     fc_errs, fc_times = _timed("K4/K5", fc_phase, dev, flush)
+    _timed("mesh bands", mesh_band_phase, dev, flush)
     for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
         errs[name] = fc_errs[mode]
         times[name] = {m: fc_times[(mode, m)] for m in (4, 32)}
@@ -3427,6 +3716,8 @@ def main(argv=None) -> int:
     slice_serves.append(disagg)   # its wide K1 runs at its own columns
     by_rows["acsr_spmv_wide"][wide] = disagg["acsr_spmv_wide"]
     del eng
+    # the mesh's serves: K1 on row bands, K2 / K3 on head groups
+    slice_serves.append(_timed("mesh serve", mesh_serve_phase, dev))
     by_rows.update(_timed("serve int8 / codebook4", fc_mode_serves, dev,
                           min(layers, FC_MODE_LAYERS)))
     launches["int8_matmul"] = sum(by_rows["int8_matmul"].values())

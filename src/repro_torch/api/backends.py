@@ -37,11 +37,13 @@ class TorchDenseBackend(Executor):
     name = "torch-dense"
     caps = Capabilities(batched_decode=True, modes=("dense",))
 
-    def make_decode_step(self, cfg):
+    def make_decode_step(self, cfg, plan=None):
+        """The decode step; ``plan`` (a `shard.ShardingPlan`) serves it
+        over a mesh, this rank's share of the params and state."""
         from repro_torch.models import model as M
 
         def step(params, state, tokens):
-            return M.decode_step(cfg, params, state, tokens)
+            return M.decode_step(cfg, params, state, tokens, plan=plan)
         return step
 
     def run_fc(self, layer, x):

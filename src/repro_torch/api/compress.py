@@ -100,6 +100,11 @@ def compress_params(params: Dict, spec: CompressionSpec = None, *,
                             kmeans_iters=spec.kmeans_iters, dtype=spec.dtype)
                for i in range(leaf.shape[0])]
         out = _stack_compressed(per)
+        if spec.shards > 1:
+            # shard-aware stacking: pad the partition axis now, so a plan
+            # with tp == shards bands it as it is (padded rows are inert)
+            from repro_torch.shard.partition import pad_leaf
+            out = pad_leaf(out, spec.shards)
         n_layers = leaf.shape[0]
         stats["n_compressed"] += n_layers
         stats["modes"][leaf_mode] = stats["modes"].get(leaf_mode, 0) \

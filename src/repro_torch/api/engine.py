@@ -21,7 +21,9 @@ cycle-accounting backend (`ap-emulator` on the engine's device,
 `cycle-sim` on the host).
 ``serve(..., disagg=True)`` splits serving into a prefill role and a
 decode role on the same device (`repro_torch.disagg`); ``resil=`` turns on
-the resilience layer (`repro_torch.resil`).
+the resilience layer (`repro_torch.resil`).  ``session(mesh=...)`` serves
+tensor-parallel over a mesh of ranks (`repro_torch.shard`), one process
+per rank, each holding a band of every banded projection.
 """
 from __future__ import annotations
 
@@ -116,7 +118,7 @@ class Engine:
                 seed: int = 0, kv_cache: Optional[str] = None,
                 page_size: int = 16, kv_pool_pages: Optional[int] = None,
                 kv_dtype: Optional[str] = None, scheduler=None,
-                disagg=None, resil=None, obs=None):
+                disagg=None, resil=None, obs=None, mesh=None):
         """A continuous-batching serving session on the engine's device.
         ``kv_cache``: None / "auto" (paged wherever there is attention),
         "paged" or "full" (the dense per-slot cache).  ``scheduler``: a
@@ -140,7 +142,15 @@ class Engine:
         sessions: once sustained page pressure has pushed it to level 2,
         this session's pool is int8.  ``resil=None`` is the path without
         the layer.  A pinned backend without batched decode raises
-        `CapabilityError`."""
+        `CapabilityError`.
+
+        ``mesh``: a `launch.mesh.Mesh` (``make_host_mesh(n_model)`` in each
+        rank's process) — this rank's share of a tensor-parallel serve
+        under a `shard.ShardingPlan`: every rank calls this with the same
+        engine and requests, holds a band of each banded projection and
+        of the paged pool's KV heads, and runs the same host loop; under
+        the default gather policy the tokens and logits equal the
+        single-device serve's bit for bit."""
         if self.cfg is None:
             raise ValueError("serving needs an ArchConfig")
         backend = self.backend  # the session asks it for the decode step
@@ -151,6 +161,11 @@ class Engine:
                 # is fixed, so level-2 demotion lands here
                 kv_dtype = resil.next_kv_dtype(kv_dtype)
         if disagg is not None and disagg is not False:
+            if mesh is not None:
+                raise ValueError(
+                    "mesh= and disagg= are mutually exclusive — give the "
+                    "roles their own devices via DisaggConfig."
+                    "prefill_devices/decode_devices")
             if kv_cache not in (None, "auto", "paged"):
                 raise ValueError(
                     "disaggregated serving migrates KV pages; it cannot "
@@ -161,12 +176,16 @@ class Engine:
                 max_len=max_len, seed=seed, page_size=page_size,
                 kv_dtype=kv_dtype, scheduler=scheduler, resil=resil,
                 obs=obs, backend=backend)
+        plan = None
+        if mesh is not None:
+            from repro_torch import shard
+            plan = shard.make_plan(mesh, self.cfg)
         return Session(self.cfg, self.params, batch_slots=batch_slots,
                        max_len=max_len, device=self.device, seed=seed,
                        kv_cache=kv_cache, page_size=page_size,
                        kv_pool_pages=kv_pool_pages, kv_dtype=kv_dtype,
                        scheduler=scheduler, resil=resil, obs=obs,
-                       backend=backend)
+                       backend=backend, plan=plan)
 
     def serve(self, requests: Sequence[Union[Request, List[int]]], *,
               batch_slots: int = 4, max_len: int = 256,

@@ -35,8 +35,9 @@ class Executor:
     caps: Capabilities = Capabilities()
 
     # ---- batched decode (serving) -------------------------------------
-    def make_decode_step(self, cfg):
-        """-> step(params, state, tokens) -> (state', logits [B, Vpad])."""
+    def make_decode_step(self, cfg, plan=None):
+        """-> step(params, state, tokens) -> (state', logits [B, Vpad]);
+        ``plan``: a `shard.ShardingPlan` to serve over a mesh."""
         raise CapabilityError(
             f"backend {self.name!r} has no batched decode; use one of "
             f"{_REGISTRY.supporting('batched_decode')}")

@@ -54,8 +54,17 @@ injection; a request the session gives up on leaves as a structured
 fault is raised before the step enqueues any work on the device, so the
 tick is lost and nothing is launched.  ``resil=None`` (the default) is the
 serving path without any of these seams.  The disaggregated roles
-(`repro_torch.disagg`) are subclasses of this session.  Not ported yet:
-mesh serving.
+(`repro_torch.disagg`) are subclasses of this session.
+
+Mesh serving: a ``plan`` (`repro_torch.shard.ShardingPlan`, built by
+``Engine.session(mesh=...)``) makes the session one rank of a
+tensor-parallel serve: its params are this rank's bands of the banded
+projections (compressed leaves padded to the tp degree first), a paged
+pool keeps this rank's KV heads, and the decode and chunked steps run
+every projection and the paged attention over the mesh.  Every rank runs
+this same host loop (scheduler, allocator, prefix cache) in lockstep:
+the gathered logits are the same on every rank, so every rank takes the
+same decisions.  ``plan=None`` is the single-device path.
 """
 from __future__ import annotations
 
@@ -109,7 +118,7 @@ class Session:
                  kv_cache: Optional[str] = None, page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, scheduler=None,
-                 resil=None, obs=None, backend=None):
+                 resil=None, obs=None, backend=None, plan=None):
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is an encoder: it has no decode "
                              "step to serve")
@@ -118,9 +127,20 @@ class Session:
         if backend is None or isinstance(backend, str):
             backend = get_backend(backend or "torch-dense")
         self.backend = backend
-        self._step = backend.make_decode_step(cfg)
-        self.cfg, self.params = cfg, params
+        self._step = backend.make_decode_step(cfg) if plan is None \
+            else backend.make_decode_step(cfg, plan=plan)
         self.device = torch.device(device)
+        self.plan = plan
+        if plan is not None:
+            from repro_torch import shard
+            from repro_torch.launch.mesh import same_device
+            if not same_device(plan.mesh.device, self.device):
+                raise ValueError(f"the mesh's rank runs on "
+                                 f"{plan.mesh.device}, the session on "
+                                 f"{self.device}")
+            # this rank's bands of the banded projections
+            params = shard.prepare_params(plan, cfg, params)
+        self.cfg, self.params = cfg, params
         self.slots = batch_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -189,6 +209,10 @@ class Session:
             self.cfg, self.slots, self.max_len, kv_cache="paged",
             page_size=self.page_size, kv_pool_pages=kv_pool_pages,
             kv_dtype=self.kv_dtype, device=self.device)
+        if self.plan is not None:          # this rank's KV heads
+            from repro_torch import shard
+            self.state = shard.place_state(self.plan, self.state,
+                                           self.cfg.n_kv)
         self.alloc = kvs.PageAllocator(self.state["layers"]["kv"].n_pages)
         # host mirror of the device page table (allocation decisions never
         # read device memory back)
@@ -784,7 +808,7 @@ class Session:
                 self.cfg, self.params, self.state,
                 torch.as_tensor(tokens, device=self.device),
                 torch.as_tensor(counts, dtype=torch.int32,
-                                device=self.device))
+                                device=self.device), plan=self.plan)
             # the copy to the host waits for the card (see _advance_decode)
             logits = logits[torch.arange(self.slots, device=self.device),
                             last, : self.cfg.vocab].cpu().numpy()

@@ -28,6 +28,12 @@ class CompressionSpec:
     kmeans_iters: int = 25
     #: value storage dtype for acsr-mode nonzeros: "f32" or "bf16"
     dtype: str = "f32"
+    #: shard-aware stacking: pad each packed container's partition axis
+    #: (ACSR row blocks / output channels) to a multiple of this count,
+    #: so a `shard.ShardingPlan` with tp == shards bands it with no
+    #: session-time padding.  1 = no padding; plans also pad lazily, so
+    #: this is an encode-time optimization, not a requirement.
+    shards: int = 1
     overrides: Mapping[str, str] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -37,6 +43,9 @@ class CompressionSpec:
         if self.dtype not in ("f32", "bf16"):
             raise ValueError(
                 f"unknown value dtype {self.dtype!r}; 'f32' or 'bf16'")
+        if not isinstance(self.shards, int) or self.shards < 1:
+            raise ValueError(
+                f"shards must be a positive int, got {self.shards!r}")
         for name, mode in self.overrides.items():
             if mode not in MODES + ("skip",):
                 raise ValueError(

@@ -86,14 +86,34 @@ def compress(w: torch.Tensor, mode: str = "aida", density: float = 0.10,
     raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
 
 
+def stored_rows(layer: CompressedFC) -> int:
+    """Output rows the container stores: ``shape[0]``, or more where it
+    was padded to a mesh's degree (`repro_torch.shard.partition`); a
+    blocked container stores whole row blocks."""
+    if layer.mode in ("acsr", "aida"):
+        return layer.blocked.nblocks * layer.blocked.block_rows
+    arr = {"dense": layer.dense, "codebook4": layer.codes_packed,
+           "int8": None if layer.qt is None else layer.qt.q}[layer.mode]
+    return int(arr.shape[-2])
+
+
 def apply_fc(layer: CompressedFC, x: torch.Tensor,
              bias: Optional[torch.Tensor] = None,
-             activation: Optional[str] = None) -> torch.Tensor:
+             activation: Optional[str] = None,
+             split: Optional[int] = None) -> torch.Tensor:
     """y = act(x @ W.T + bias) for x [B, n_in] (or [n_in]); bias and
     activation ride in the kernel epilogue on the compressed paths.
-    Returns f32 [B, layer.shape[0]]."""
+    Returns f32 [B, layer.shape[0]]: rows past it (a leaf padded for a
+    mesh) are sliced off.  ``split``: for a row band of a larger leaf, the
+    whole's row blocks (acsr / aida) or output channels (int8 /
+    codebook4), whose kernel split the band's launch follows, so its rows
+    get the whole's bits (`repro_torch.shard`)."""
     squeeze = x.ndim == 1
     x2 = x[None, :] if squeeze else x
+    pad = stored_rows(layer) - (0 if bias is None else bias.shape[0])
+    if bias is not None and pad > 0 and layer.mode not in ("acsr", "aida"):
+        # rows padded for a mesh take a zero bias (K1 pads its own)
+        bias = torch.nn.functional.pad(bias.float(), (0, pad))
     if layer.mode == "dense":
         y = torch.matmul(x2, layer.dense.T)
         if bias is not None:
@@ -101,13 +121,13 @@ def apply_fc(layer: CompressedFC, x: torch.Tensor,
         y = ref.apply_activation(activation, y)
     elif layer.mode == "int8":
         y = i8.int8_matmul(x2, layer.qt.q, layer.qt.scale, bias=bias,
-                           activation=activation)
+                           activation=activation, split_n=split)
     elif layer.mode == "codebook4":
         y = lm.lut_matmul(x2, layer.codes_packed, layer.centroids,
-                          bias=bias, activation=activation)
+                          bias=bias, activation=activation, split_n=split)
     elif layer.mode in ("acsr", "aida"):
         y = sp.acsr_spmv(layer.blocked, x2.T, bias=bias,
-                         activation=activation).T
+                         activation=activation, split_nb=split).T
     else:
         raise ValueError(layer.mode)
     y = y[:, : layer.shape[0]]

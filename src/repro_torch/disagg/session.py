@@ -74,7 +74,7 @@ class DisaggConfig:
     prefill_pool_pages: Optional[int] = None
     decode_pool_pages: Optional[int] = None
     max_backlog: Optional[int] = None
-    prefill_devices: Optional[int] = None   # role meshes: not ported yet
+    prefill_devices: Optional[int] = None   # role meshes: the next slice
     decode_devices: Optional[int] = None
 
     def __post_init__(self):
@@ -253,8 +253,10 @@ class DisaggSession:
         if d.prefill_devices is not None:
             raise NotImplementedError(
                 "roles on their own devices (prefill_devices / "
-                "decode_devices) wait for the port of the shard layer "
-                "(ROADMAP queue 1 item 10); both roles share one device")
+                "decode_devices) wait for the role meshes "
+                "(launch.mesh.make_role_meshes), the next slice of the "
+                "shard layer's port (ROADMAP queue 1 item 10); both roles "
+                "share one device")
         self.dcfg = d
         backlog = d.max_backlog if d.max_backlog is not None \
             else d.decode_slots

@@ -234,9 +234,22 @@ def _ptrs(b: BlockedACSR, x2d, bias, out, part, with_off: bool):
                out.data_ptr(), part.data_ptr()])
 
 
+def launch_plan(b: BlockedACSR, sms: int,
+                split_nb: Optional[int] = None) -> Tuple[int, int, int]:
+    """The split a launch runs: the container's own, or that of the whole
+    matrix of ``split_nb`` row blocks a row band was cut from (a band
+    keeps the whole's rmax, so its rows sum in the whole's order, bit for
+    bit)."""
+    nb, rmax, br = b.values.shape
+    if split_nb is not None and split_nb < nb:
+        raise ValueError(f"split_nb {split_nb} is below the band's {nb} "
+                         "row blocks")
+    return split_plan(split_nb or nb, rmax, br, sms)
+
+
 def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,
-                bias: Optional[torch.Tensor],
-                activation: Optional[str]) -> torch.Tensor:
+                bias: Optional[torch.Tensor], activation: Optional[str],
+                split_nb: Optional[int] = None) -> torch.Tensor:
     """The variant for x of at most GATHER_COLS columns (a decode step):
     one thread a row part gathers x from L1 / L2 per slot; the ranges are
     added by the row block's last block, in one launch.  Returns [nblocks *
@@ -246,7 +259,7 @@ def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,
     dev = x2d.device
     if x2d.data_ptr() % 16:          # the kernel reads x rows 16 bytes at
         x2d = x2d.clone()            # a time
-    sy, nsplit, per = split_plan(nb, rmax, br, build.sm_count(dev))
+    sy, nsplit, per = launch_plan(b, build.sm_count(dev), split_nb)
     out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
     part = torch.empty((nsplit * nb * br * bsz if nsplit > 1 else 1,),
                        dtype=torch.float32, device=dev)
@@ -262,8 +275,8 @@ def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,
 
 
 def spmv_wide(b: BlockedACSR, x2d: torch.Tensor,
-              bias: Optional[torch.Tensor],
-              activation: Optional[str]) -> torch.Tensor:
+              bias: Optional[torch.Tensor], activation: Optional[str],
+              split_nb: Optional[int] = None) -> torch.Tensor:
     """The variant for wider x (a chunked step): x staged in shared memory
     tile by tile, up to 32 columns a pass over the weights, each column
     summed as the gather variant sums it.  Returns [nblocks * block_rows,
@@ -272,7 +285,7 @@ def spmv_wide(b: BlockedACSR, x2d: torch.Tensor,
     k, bsz = x2d.shape
     dev = x2d.device
     nck = max(1, cdiv(k, CHUNK_COLS))
-    sy, nsplit, per = split_plan(nb, rmax, br, build.sm_count(dev))
+    sy, nsplit, per = launch_plan(b, build.sm_count(dev), split_nb)
     out = torch.empty((nb * br, bsz), dtype=torch.float32, device=dev)
     part = torch.empty((nsplit * nb * br * min(bsz, _GROUP)
                         if nsplit > 1 else 1,),
@@ -288,16 +301,18 @@ def spmv_wide(b: BlockedACSR, x2d: torch.Tensor,
 
 
 def _launch(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
-            activation: Optional[str]) -> torch.Tensor:
+            activation: Optional[str],
+            split_nb: Optional[int] = None) -> torch.Tensor:
     """Check the operands, then launch the variant for x's width."""
     _check(b, x2d, bias, activation)
     kern = spmv_gather if x2d.shape[1] <= GATHER_COLS else spmv_wide
-    return kern(b, x2d, bias, activation)
+    return kern(b, x2d, bias, activation, split_nb)
 
 
 def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
               bias: Optional[torch.Tensor] = None,
-              activation: Optional[str] = None) -> torch.Tensor:
+              activation: Optional[str] = None,
+              split_nb: Optional[int] = None) -> torch.Tensor:
     """Fused sparse (optionally coded) pipeline: act(W @ x + bias).
 
     x: [K] or [K, B] f32; bias: [n_rows] (or padded to nblocks*block_rows)
@@ -306,7 +321,9 @@ def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
     version: x of at most GATHER_COLS columns takes :func:`spmv_gather`,
     wider x :func:`spmv_wide`; both give each column the same bits.  The
     wide variant relies on each row's live slots holding ascending columns,
-    as both encoders and the bridged reference containers do."""
+    as both encoders and the bridged reference containers do.
+    ``split_nb``: on a row band of a larger matrix, the whole's row-block
+    count, whose split the band's launch follows."""
     squeeze = x.ndim == 1
     x2d = x[:, None] if squeeze else x
     rows = b.nblocks * b.block_rows
@@ -319,7 +336,7 @@ def acsr_spmv(b: BlockedACSR, x: torch.Tensor, *,
     else:
         out = _launch(b, x2d.float().contiguous(),
                       None if bias is None else bias.float().contiguous(),
-                      activation)
+                      activation, split_nb)
     out = out[: b.shape[0]]
     return out[:, 0] if squeeze else out
 

@@ -40,12 +40,26 @@ def split_plan(n: int, k: int, sms: int) -> Tuple[Tuple[int, int], ...]:
     return tuple((k0, min(k, k0 + per)) for k0 in range(0, k, per))
 
 
+def launch_plan(n: int, k: int, sms: int,
+                split_n: Optional[int] = None) -> Tuple[Tuple[int, int], ...]:
+    """The K ranges a launch of ``n`` channels runs: its own plan, or on a
+    band of a larger matrix that of the whole's ``split_n`` channels, so
+    the band's rows sum in the whole's order, bit for bit."""
+    if split_n is not None and split_n < n:
+        raise ValueError(f"split_n {split_n} is below the band's {n} "
+                         "channels")
+    return split_plan(split_n or n, k, sms)
+
+
 def launch(lib: str, x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
            n: int, bias: Optional[torch.Tensor],
-           activation: Optional[str]) -> torch.Tensor:
+           activation: Optional[str],
+           split_n: Optional[int] = None) -> torch.Tensor:
     """act(x [M, K] @ W.T (+ bias)) -> [M, n] f32 through
     ``csrc/<lib>.cu``'s ``<lib>_launch``; ``w`` holds the compressed
-    weights and ``aux`` their scales (K4) or centroids (K5)."""
+    weights and ``aux`` their scales (K4) or centroids (K5).  ``split_n``:
+    on a band of output channels, the whole matrix's channel count, whose
+    K split the band follows (so its rows get the whole's bits)."""
     m, k = x.shape
     dev = x.device
     if activation not in ref.ACT_CODES:
@@ -59,7 +73,7 @@ def launch(lib: str, x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{lib} operands must be contiguous and on one "
                              "device")
-    plan = split_plan(n, k, build.sm_count(dev))
+    plan = launch_plan(n, k, build.sm_count(dev), split_n)
     ksplit, per = len(plan), cdiv(plan[0][1], BK) * BK
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     part = torch.empty((ksplit * m * n if ksplit > 1 else 1,),

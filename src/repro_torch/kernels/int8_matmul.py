@@ -28,10 +28,11 @@ def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
-                activation: Optional[str] = None) -> torch.Tensor:
+                activation: Optional[str] = None,
+                split_n: Optional[int] = None) -> torch.Tensor:
     """act(x [M, K] @ (q [N, K] int8 * scale [N, 1]).T + bias [N]) ->
     [M, N] f32.  A CUDA tensor launches the kernel (or raises); a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.  ``split_n``: see `fc_tile.launch`."""
     n, k = q.shape
     if q.dtype != torch.int8 or x.shape[-1] != k or scale.numel() != n:
         raise ValueError(f"int8_matmul: x {tuple(x.shape)}, q "
@@ -42,7 +43,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     out = fc_tile.launch("int8_matmul", x.float().contiguous(),
                          q.contiguous(), scale.float().contiguous(), n,
                          None if bias is None else bias.float().contiguous(),
-                         activation)
+                         activation, split_n)
     int8_matmul.launches += 1
     return out
 

@@ -39,10 +39,11 @@ def lut_matmul_ref(x: torch.Tensor, codes_packed: torch.Tensor,
 def lut_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
                centroids: torch.Tensor, *,
                bias: Optional[torch.Tensor] = None,
-               activation: Optional[str] = None) -> torch.Tensor:
+               activation: Optional[str] = None,
+               split_n: Optional[int] = None) -> torch.Tensor:
     """act(x [M, K] @ dequant(codes [N, K/2], centroids [16]).T + bias [N])
     -> [M, N] f32.  A CUDA tensor launches the kernel (or raises); a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.  ``split_n``: see `fc_tile.launch`."""
     n, kb = codes_packed.shape
     if codes_packed.dtype != torch.uint8 or x.shape[-1] != 2 * kb or \
             centroids.numel() != 16:
@@ -56,7 +57,7 @@ def lut_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
                          codes_packed.contiguous(),
                          centroids.float().contiguous(), n,
                          None if bias is None else bias.float().contiguous(),
-                         activation)
+                         activation, split_n)
     lut_matmul.launches += 1
     return out
 

@@ -66,7 +66,10 @@ def paged_attention_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,
     per-(page, head) scale), scores scaled then soft-capped, masked to
     -1e30 per query where ``table < 0``, past its own ``q_pos`` or outside
     the window, softmax, and ``acc / max(l, 1e-30)``.  -1 entries read
-    page 0.  q [B, H, C, Dh], q_pos [B, C] -> [B, H, C, Dh] f32."""
+    page 0.  One kv head (and its query group) at a time, so a head's bits
+    never depend on the heads beside it: a mesh rank's band of the heads
+    gets the bits of the same heads of the whole.  q [B, H, C, Dh], q_pos
+    [B, C] -> [B, H, C, Dh] f32."""
     b, h, c, dh = q.shape
     _, hkv, ps, _ = k_pages.shape
     g = h // hkv
@@ -77,23 +80,30 @@ def paged_attention_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if k_scale is not None:
         k = k * k_scale[safe][..., None, None]
         v = v * v_scale[safe][..., None, None]
-    qg = q.float().reshape(b, hkv, g, c, dh)
-    s = torch.einsum("bkgqd,bpkjd->bkgqpj", qg, k) * scale
-    if cap is not None:
-        s = cap * torch.tanh(s / cap)
     pos = torch.arange(npp * ps, device=q.device).reshape(1, 1, npp, ps)
     cur = q_pos.long()[:, :, None, None]                  # [B, C, 1, 1]
     mask = (table >= 0)[:, None, :, None] & (pos <= cur)  # [B, C, P, ps]
     if window >= 0:
         mask = mask & (pos > cur - window)
-    s = torch.where(mask[:, None, None], s, NEG_INF)
-    s = s.reshape(b, hkv, g, c, npp * ps)
-    m = s.max(dim=-1, keepdim=True).values
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    vv = v.permute(0, 2, 1, 3, 4).reshape(b, hkv, npp * ps, dh)
-    o = torch.einsum("bkgqj,bkjd->bkgqd", p, vv) / torch.clamp(l, min=1e-30)
-    return o.reshape(b, h, c, dh)
+    qg = q.float().reshape(b, hkv, g, c, dh)
+    outs = []
+    for i in range(hkv):
+        # the products, exp and tanh on this head's own contiguous
+        # tensors: the CPU sums a product and rounds a vectorised exp's
+        # tail by the tensor's shape, which a head band must not change
+        s = torch.einsum("bgqd,bpjd->bgqpj", qg[:, i].contiguous(),
+                         k[:, :, i].contiguous()) * scale
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(mask[:, None], s, NEG_INF).reshape(b, g, c,
+                                                            npp * ps)
+        m = s.max(dim=-1, keepdim=True).values
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        vv = v[:, :, i].reshape(b, npp * ps, dh)
+        outs.append(torch.einsum("bgqj,bjd->bgqd", p, vv)
+                    / torch.clamp(l, min=1e-30))
+    return torch.stack(outs, dim=1).reshape(b, h, c, dh)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

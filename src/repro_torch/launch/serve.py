@@ -13,22 +13,30 @@ device, with KV page migration between their pools (``--prefill-slots``,
 ``--decode-slots``); ``--fault-plan PRESET:SEED``, ``--deadline-ticks``
 and ``--max-retries`` turn on the resilience layer, which reports what it
 did (and which requests failed, structurally) under ``resil`` in
-``--json``.  The flags and the ``[serve]`` lines are the JAX package's
-launcher's, less the mesh ones (``--mesh``, ``--prefill-devices``,
-``--decode-devices``), which wait for the shard layer's port.  Without a
-visible card and without ``--device cpu`` it stops with an error; it never
-falls back to the CPU.
+``--json``.  ``--mesh MODEL[xDATA]`` serves tensor-parallel
+(`repro_torch.shard`): the launcher starts one process per rank, over
+``nccl`` with a card a rank, or over ``gloo`` with ``--device cpu`` or
+``--mesh-backend gloo`` (every rank on the one card); rank 0 alone prints
+the report and writes the files, after checking that every rank served
+the same tokens.  The flags and the ``[serve]`` lines are the JAX
+package's launcher's, less ``--prefill-devices`` / ``--decode-devices``,
+which wait for the role meshes.  Without a visible card and without
+``--device cpu`` it stops with an error; it never falls back to the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 #: the launcher serves at this context length, as the JAX package's does
 MAX_LEN = 128
+#: seconds a --mesh serve's ranks may run before the launcher stops them
+MESH_TIMEOUT = 3600.0
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -70,6 +78,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-pool-pages", type=int, default=None,
                     help="page-pool size (small pools exercise admission "
                          "control and preemption instead of crashing)")
+    ap.add_argument("--mesh", default=None, metavar="MODEL[xDATA]",
+                    help="tensor-parallel serving mesh, MODEL or "
+                         "MODELxDATA (e.g. 4 or 2x2): one process a rank "
+                         "(repro_torch.shard)")
+    ap.add_argument("--mesh-backend", default=None,
+                    choices=[None, "nccl", "gloo"],
+                    help="the mesh's collectives: nccl (default on the "
+                         "card, a card a rank) or gloo (the default with "
+                         "--device cpu; on the card every rank shares "
+                         "cuda:0)")
     ap.add_argument("--disagg", action="store_true",
                     help="disaggregated serving: a prefill role and a "
                          "decode role with KV page migration "
@@ -197,10 +215,79 @@ def _report(tracer, slo, path: Optional[str]) -> None:
         print(f"[serve] report: trace analysis -> {path}")
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _parse_mesh(ap, arg: str) -> Tuple[int, Optional[int]]:
+    """"4" -> model 4; "4x2" -> model 4, data 2."""
+    parts = arg.lower().split("x")
+    try:
+        return int(parts[0]), int(parts[1]) if len(parts) > 1 else None
+    except (ValueError, IndexError):
+        ap.error(f"--mesh wants MODEL or MODELxDATA, got {arg!r}")
+
+
+def _mesh_backend(ap, args, n: int) -> str:
+    """The mesh's collective backend: gloo on the CPU, nccl on the card
+    unless --mesh-backend gloo asks every rank onto one card."""
+    import torch
+    if args.device == "cpu":
+        if args.mesh_backend == "nccl":
+            ap.error("--mesh-backend nccl needs the card, not --device cpu")
+        return "gloo"
+    if args.device is not None:
+        ap.error("a mesh on the card places its ranks itself; drop "
+                 "--device (or pass --device cpu)")
+    if not torch.cuda.is_available():
+        ap.exit(2, "[serve] no CUDA device is visible; pass --device cpu "
+                "for a mesh on the CPU\n")
+    backend = args.mesh_backend or "nccl"
+    if backend == "nccl" and torch.cuda.device_count() < n:
+        ap.error(f"an nccl mesh of {n} ranks needs {n} cards, "
+                 f"{torch.cuda.device_count()} are visible (--mesh-backend "
+                 "gloo puts every rank on one card)")
+    return backend
+
+
+def _mesh_rank(rank: int, argv: List[str], backend: str) -> None:
+    """One rank of ``--mesh``: the same serve on this rank's device, its
+    output and files on rank 0 alone."""
+    from repro_torch.launch.mesh import make_host_mesh
     ap = _parser()
     args = ap.parse_args(argv)
+    n_model, n_data = _parse_mesh(ap, args.mesh)
+    device = "cpu" if args.device == "cpu" else \
+        f"cuda:{rank if backend == 'nccl' else 0}"
+    mesh = make_host_mesh(n_model, n_data, backend=backend, device=device)
+    if rank:
+        args.json = args.trace = args.report = args.profile_dir = None
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            _serve(ap, args, mesh)
+    else:
+        _serve(ap, args, mesh)
 
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = _parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
+    if args.mesh is None:
+        return _serve(ap, args)
+    if args.disagg:
+        ap.error("--mesh and --disagg are mutually exclusive; give the "
+                 "roles their own devices with --prefill-devices / "
+                 "--decode-devices (not ported yet)")
+    n_model, n_data = _parse_mesh(ap, args.mesh)
+    n = n_model * (n_data or 1)
+    if n_model < 1 or n < 1:
+        ap.error(f"--mesh degrees must be >= 1, got {args.mesh!r}")
+    backend = _mesh_backend(ap, args, n)
+    from repro_torch.shard import comm
+    comm.spawn(n, _mesh_rank, (argv, backend), backend=backend,
+               timeout=MESH_TIMEOUT)
+    return 0
+
+
+def _serve(ap, args, mesh=None) -> int:
+    """The serve itself: on one device, or as one rank of ``mesh``."""
     from repro_torch.api import CompressionSpec, Engine
     from repro_torch.core.device import resolve_device
     from repro_torch.configs import get, reduced
@@ -215,10 +302,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         except ValueError as e:
             ap.error(str(e))
     resil = _resil(ap, args)
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        ap.exit(2, f"[serve] {e}\n")
+    if mesh is not None:
+        device = mesh.device
+    else:
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            ap.exit(2, f"[serve] {e}\n")
 
     cfg = get(args.arch) if args.full_size else reduced(get(args.arch))
     if not cfg.has_decode:
@@ -246,13 +336,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         disagg = {"prefill_slots": args.prefill_slots,
                   "decode_slots": args.decode_slots}
     tracer = _tracer(ap, args, slo)
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_shape_dict
+        print(f"[serve] mesh: {mesh_shape_dict(mesh)} over {mesh.backend}, "
+              f"one process a rank")
     sess = eng.session(batch_slots=args.slots, max_len=MAX_LEN,
                        kv_cache=args.kv_cache,
                        kv_pool_pages=args.kv_pool_pages,
                        scheduler=SchedConfig(
                            policy=args.policy, chunk=args.chunk,
                            prefix_cache=args.prefix_cache),
-                       disagg=disagg, resil=resil, obs=tracer)
+                       disagg=disagg, resil=resil, obs=tracer, mesh=mesh)
     pre = sess.pre if args.disagg else sess
     paged = pre.alloc is not None
     print(f"[serve] workload={args.workload} seed={args.seed} "
@@ -269,6 +363,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         sess.run_workload(
             arrivals, on_incomplete="warn" if resil is not None else "raise")
     dt = time.perf_counter() - t0
+    if mesh is not None:
+        _check_lockstep(sess, mesh)
     rsumm = sess.resil_summary()
     if args.disagg:
         m = summarize(sess.records, dt,
@@ -349,7 +445,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             "provenance": provenance(
                 config=cfg.name, mode=args.compress or "dense",
                 seed=args.seed, backend=backend, device=device,
-                workload=args.workload, disagg=bool(args.disagg)),
+                workload=args.workload, disagg=bool(args.disagg),
+                mesh=None if mesh is None else {
+                    "shape": dict(zip(mesh.axis_names, mesh.shape)),
+                    "backend": mesh.backend}),
             "metrics": m,
             "failed": [{"rid": f.rid, "reason": f.reason,
                         "retries": f.retries}
@@ -363,6 +462,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             f.write("\n")
         print(f"[serve] json: metrics -> {args.json}")
     return 0
+
+
+def _check_lockstep(sess, mesh) -> None:
+    """Every rank ran the same host loop: their tokens (rid order) must be
+    equal, or the serve fails."""
+    import torch
+    from repro_torch.shard import comm
+    toks = [t for r in sorted(sess.results, key=lambda r: r.rid)
+            for t in [r.rid, len(r.tokens), *r.tokens]]
+    if not comm.all_equal(torch.tensor(toks, dtype=torch.int64,
+                                       device=mesh.device)):
+        raise RuntimeError("mesh ranks served different tokens")
+    print(f"[serve] mesh: the {mesh.size} ranks served the same tokens")
 
 
 if __name__ == "__main__":

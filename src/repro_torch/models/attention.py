@@ -40,10 +40,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
-def _qkv(p, x, n_heads, n_kv, d_head, positions, theta):
-    q = dense(x, p["wq"], p.get("bq"))
-    k = dense(x, p["wk"], p.get("bk"))
-    v = dense(x, p["wv"], p.get("bv"))
+def _qkv(p, x, n_heads, n_kv, d_head, positions, theta, plan=None):
+    q = dense(x, p["wq"], p.get("bq"), plan=plan)
+    k = dense(x, p["wk"], p.get("bk"), plan=plan)
+    v = dense(x, p["wv"], p.get("bv"), plan=plan)
     q = _split_heads(q, n_heads, d_head)
     k = _split_heads(k, n_kv, d_head)
     v = _split_heads(v, n_kv, d_head)
@@ -143,25 +143,33 @@ def attn_decode(p, cache: kvc.KVCache, x, cur_pos, *, n_heads: int,
                 n_kv: int, d_head: int, window: int, ring: bool = False,
                 cap: Optional[float] = None,
                 theta: Optional[float] = 10000.0,
-                scale: Optional[float] = None):
+                scale: Optional[float] = None, plan=None):
     """One-token decode against a dense cache. x [B, 1, D], cur_pos [B]
-    absolute positions."""
+    absolute positions.  Under a ``plan`` the projections run banded over
+    the mesh; the dense cache is every rank's own whole copy."""
     scale = (d_head ** -0.5) if scale is None else scale
-    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, cur_pos[:, None], theta)
+    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, cur_pos[:, None], theta,
+                   plan=plan)
     cache, o = decode_attend(cache, q, k, v, cur_pos, window=window,
                              ring=ring, cap=cap, scale=scale)
-    return cache, dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"])
+    return cache, dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"],
+                        plan=plan)
 
 
 def decode_attend_paged(pool: kvs.PagedKV, table, q, k, v, cur_pos, *,
                         window: int, cap: Optional[float] = None,
-                        scale: float = 1.0):
+                        scale: float = 1.0, plan=None):
     """Write the token's k/v into its page (in place), then attend over the
-    sequence's pages.  q/k/v are [B, H(kv), 1, Dh] as from _qkv."""
-    pool = kvs.update(pool, table, k[:, :, 0].float(), v[:, :, 0].float(),
-                      cur_pos)
-    o = kvs.paged_attention(q[:, :, 0], pool, table, cur_pos, window,
-                            scale=scale, cap=cap)
+    sequence's pages.  q/k/v are [B, H(kv), 1, Dh] as from _qkv.  Under a
+    ``plan`` that bands the pool by heads, the rank writes and attends its
+    own KV heads and the heads' outputs are gathered
+    (`shard.paged_attention_sharded`)."""
+    from repro_torch.shard.apply import kv_heads, paged_attention_sharded
+    n_kv = k.shape[1]
+    pool = kvs.update(pool, table, kv_heads(plan, n_kv, k[:, :, 0]).float(),
+                      kv_heads(plan, n_kv, v[:, :, 0]).float(), cur_pos)
+    o = paged_attention_sharded(plan, q[:, :, 0], pool, table, cur_pos,
+                                window, n_kv=n_kv, scale=scale, cap=cap)
     return pool, o[:, :, None, :]
 
 
@@ -169,11 +177,14 @@ def attn_decode_paged(p, pool: kvs.PagedKV, table, x, cur_pos, *,
                       n_heads: int, n_kv: int, d_head: int, window: int,
                       cap: Optional[float] = None,
                       theta: Optional[float] = 10000.0,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, plan=None):
     """One-token decode against the paged KV pool. x [B, 1, D], cur_pos [B]
-    absolute positions."""
+    absolute positions; ``plan``: see :func:`decode_attend_paged`."""
     scale = (d_head ** -0.5) if scale is None else scale
-    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, cur_pos[:, None], theta)
+    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, cur_pos[:, None], theta,
+                   plan=plan)
     pool, o = decode_attend_paged(pool, table, q, k, v, cur_pos,
-                                  window=window, cap=cap, scale=scale)
-    return pool, dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"])
+                                  window=window, cap=cap, scale=scale,
+                                  plan=plan)
+    return pool, dense(_merge_heads(o.to(COMPUTE_DTYPE)), p["wo"],
+                       plan=plan)

@@ -27,33 +27,71 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with both operands rounded to bf16 and the sum in f32 (the
-    products of bf16 values are exact in f32)."""
-    return torch.matmul(x.to(COMPUTE_DTYPE).float(),
-                        w.to(COMPUTE_DTYPE).float())
+    products of bf16 values are exact in f32).  x's f32 copy takes the
+    standard strides: the CPU's product can sum in another order for x
+    whose size-1 axes carry other strides, and a row's bits must not
+    depend on how x's strides came about."""
+    return torch.matmul(
+        x.to(COMPUTE_DTYPE).to(torch.float32,
+                               memory_format=torch.contiguous_format),
+        w.to(COMPUTE_DTYPE).float())
 
 
 def dense(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
-          activation: Optional[str] = None) -> torch.Tensor:
+          activation: Optional[str] = None, plan=None) -> torch.Tensor:
     """act(x @ w + bias).  ``w`` is a raw [d_in, d_out] matrix or a leaf
     registered with `repro_torch.api.dispatch` (a CompressedFC: the
     aida, acsr, int8, codebook4 and dense modes).  A compressed leaf takes
     x in f32, fuses bias and activation into its kernel's epilogue and
     casts the output to bf16; a raw matrix multiplies in bf16 with f32
     accumulation, adds the bias in f32, then casts to bf16 and applies the
-    activation."""
+    activation.
+
+    ``plan`` (a `repro_torch.shard.ShardingPlan`) serves over a mesh: a
+    compressed leaf, or this rank's `shard.Band` of one, runs its band
+    through the same kernels and gathers the bands
+    (`shard.apply_fc_sharded`); a raw band multiplies its columns and
+    gathers them before the same bias and epilogue."""
+    band = _band(w, plan)
+    if band == "compressed":
+        from repro_torch.shard import apply_fc_sharded
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        y = apply_fc_sharded(plan, w, x2, bias=bias, activation=activation)
+        return y.reshape(*lead, y.shape[-1]).to(COMPUTE_DTYPE)
     apply = _dispatch.applier_for(w)
     if apply is not None:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).float()
         y = apply(w, x2, bias=bias, activation=activation)
         return y.reshape(*lead, y.shape[-1]).to(COMPUTE_DTYPE)
-    y = _bf16_matmul(x, w)
+    if band == "raw":             # this rank's columns, then everyone's
+        from repro_torch.shard.apply import gather
+        y = gather(plan, _bf16_matmul(x, w.local), w.n_out)
+    else:
+        y = _bf16_matmul(x, w)
     if bias is not None:
         y = y + bias.float()
     y = y.to(COMPUTE_DTYPE)
     if activation is not None:
         y = apply_activation(activation, y.float()).to(COMPUTE_DTYPE)
     return y
+
+
+def _band(w, plan) -> Optional[str]:
+    """How ``dense`` runs ``w`` under ``plan``: "compressed" (a
+    CompressedFC or its Band, over a mesh), "raw" (a raw matrix's Band) or
+    None (the single-device path)."""
+    from repro_torch.shard.partition import Band
+    if isinstance(w, Band):
+        if plan is None:
+            raise ValueError("a banded projection runs over its mesh: pass "
+                             "the session's plan")
+        return "raw" if isinstance(w.local, torch.Tensor) else "compressed"
+    if plan is not None and plan.tp > 1 and \
+            _dispatch.applier_for(w) is not None:
+        return "compressed"
+    return None
 
 
 def rms_norm_init(d: int, lead=(), device=None):
@@ -107,13 +145,14 @@ def mlp_init(gen: torch.Generator, d: int, f: int, gated: bool = True,
     return p
 
 
-def mlp(x: torch.Tensor, p, act: str = "silu") -> torch.Tensor:
+def mlp(x: torch.Tensor, p, act: str = "silu", plan=None) -> torch.Tensor:
     if "gate" in p:
         # the activation fuses into the gate projection's kernel epilogue
-        up = dense(x, p["gate"], activation=act) * dense(x, p["up"])
+        up = dense(x, p["gate"], activation=act, plan=plan) \
+            * dense(x, p["up"], plan=plan)
     else:
-        up = dense(x, p["up"], activation=act)
-    return dense(up, p["down"])
+        up = dense(x, p["up"], activation=act, plan=plan)
+    return dense(up, p["down"], plan=plan)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int):

@@ -177,25 +177,33 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                                          device=device)}
 
 
+def lm_logits(cfg: ArchConfig, params: Dict, x: torch.Tensor
+              ) -> torch.Tensor:
+    """The head's f32 logits of the final-normed ``x`` (the tied
+    embedding's or the lm_head's, whole on every rank of a mesh),
+    soft-capped."""
+    if cfg.tie_embeddings:
+        logits = unembed(x, params["embed"])
+    else:
+        logits = _bf16_matmul(x, params["lm_head"])
+    return softcap(logits, cfg.final_softcap)
+
+
 def decode_step(cfg: ArchConfig, params: Dict, state: Dict,
-                tokens: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+                tokens: torch.Tensor, plan=None) -> Tuple[Dict, torch.Tensor]:
     """tokens [B] -> (state', logits [B, Vpad] f32).  The state's pools,
     caches and recurrent states are written in place (the JAX step donates
     its state for the same reason: they are never copied); ``pos``
     advances by one.  A vision model decodes text only, as the JAX
-    package serves it."""
+    package serves it.  ``plan``: the serving `shard.ShardingPlan`,
+    threaded to every projection (None: one device)."""
     x = embed(tokens[:, None], params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     table = state.get("page_table")
     layers, x = tfm.stack_decode(cfg, params["layers"], state["layers"], x,
-                                 state["pos"], table)
-    x = _norm(cfg)(x, params["final_norm"])
-    if cfg.tie_embeddings:
-        logits = unembed(x, params["embed"])
-    else:
-        logits = _bf16_matmul(x, params["lm_head"])
-    logits = softcap(logits, cfg.final_softcap)
+                                 state["pos"], table, plan=plan)
+    logits = lm_logits(cfg, params, _norm(cfg)(x, params["final_norm"]))
     new_state = {"layers": layers, "pos": state["pos"] + 1}
     if table is not None:
         new_state["page_table"] = table

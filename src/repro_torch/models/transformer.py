@@ -27,6 +27,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (COMPUTE_DTYPE, layer_norm,
                                        layer_norm_init, mlp, mlp_init,
                                        rms_norm, rms_norm_init)
+from repro_torch.shard.partition import Band
 
 REMAT = ("none", "dots", "full")
 FAMILIES = ("dense", "moe", "hymba", "rwkv6", "encoder")
@@ -143,7 +144,7 @@ def layer_view(tree, i: int):
     """Layer ``i`` of a stacked param / state tree, as views."""
     if isinstance(tree, dict):
         return {k: layer_view(v, i) for k, v in tree.items()}
-    if isinstance(tree, (CompressedFC, kvs.PagedKV, kvc.KVCache)):
+    if isinstance(tree, (CompressedFC, Band, kvs.PagedKV, kvc.KVCache)):
         return tree.layer(i)
     return tree[i]
 
@@ -154,7 +155,7 @@ def _attn_kwargs(cfg: ArchConfig):
                 scale=cfg.attn_scale)
 
 
-def ffn(cfg: ArchConfig, p: Dict, x, h):
+def ffn(cfg: ArchConfig, p: Dict, x, h, plan=None):
     """The second half of an attention layer, from the residual ``x`` and
     the attention output ``h``: post-norm of h (gemma2), residual add, the
     MLP or MoE over the normed sum, its post-norm, residual add ->
@@ -171,7 +172,7 @@ def ffn(cfg: ArchConfig, p: Dict, x, h):
             top_k=cfg.moe.top_k, group_size=cfg.moe.group_size,
             capacity_factor=cfg.moe.capacity_factor)
     else:
-        h = mlp(nrm(x, p["ln2"]), p["mlp"], cfg.act)
+        h = mlp(nrm(x, p["ln2"]), p["mlp"], cfg.act, plan=plan)
     if cfg.post_norms:
         h = nrm(h, p["ln2p"])
     return x + h, aux
@@ -255,11 +256,13 @@ def stack_forward(cfg: ArchConfig, stacked: Dict, x, positions,
 
 
 def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
-                 window: int, page_table):
+                 window: int, page_table, plan=None):
     """One layer, one token, x [B, 1, D].  Writes the layer's pool or
     dense cache (and hymba's mamba state, or the rwkv6 state) in place and
     returns (state, x).  ``page_table`` None takes the dense cache, a ring
-    where no layer is global."""
+    where no layer is global.  ``plan`` (`shard.ShardingPlan`) runs the
+    attention and MLP projections and the paged attention over a mesh;
+    None is the single-device path."""
     nrm = _norm(cfg)
     if cfg.family == "rwkv6":
         tm, h = ssm.rwkv6_time_mix_decode(
@@ -275,11 +278,12 @@ def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
     if page_table is not None:
         cache, h = attn.attn_decode_paged(p["attn"], st["kv"], page_table,
                                           nrm(x, p["ln1"]), cur_pos,
-                                          window=window, **_attn_kwargs(cfg))
+                                          window=window, plan=plan,
+                                          **_attn_kwargs(cfg))
     else:
         cache, h = attn.attn_decode(p["attn"], st["kv"], nrm(x, p["ln1"]),
                                     cur_pos, window=window,
-                                    ring=not _any_global(cfg),
+                                    ring=not _any_global(cfg), plan=plan,
                                     **_attn_kwargs(cfg))
     if cfg.family == "hymba":
         mst, hs = ssm.mamba_decode(p["mamba"], st["mamba"], nrm(x, p["ln1"]),
@@ -287,12 +291,12 @@ def block_decode(cfg: ArchConfig, p: Dict, st: Dict, x, cur_pos,
         st["mamba"]["conv"].copy_(mst["conv"])
         st["mamba"]["h"].copy_(mst["h"])
         h = _hybrid(cfg, p, h, hs)
-    x, _ = ffn(cfg, p, x, h)
+    x, _ = ffn(cfg, p, x, h, plan=plan)
     return dict(st, kv=cache), x
 
 
 def stack_decode(cfg: ArchConfig, stacked: Dict, states: Dict, x, cur_pos,
-                 page_table):
+                 page_table, plan=None):
     """Every layer in turn over layer views of the stacked params and
     state; the pools, caches and recurrent states are written in place, so
     the returned state is the one passed in.  ``page_table`` is None for
@@ -300,5 +304,5 @@ def stack_decode(cfg: ArchConfig, stacked: Dict, states: Dict, x, cur_pos,
     for i, window in enumerate(cfg.layer_windows()):
         _, x = block_decode(cfg, layer_view(stacked, i),
                             layer_view(states, i), x, cur_pos, window,
-                            page_table)
+                            page_table, plan=plan)
     return states, x

@@ -35,8 +35,9 @@ from repro_torch import kvstore as kvs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (COMPUTE_DTYPE, _bf16_matmul, dense,
-                                       embed, softcap, unembed)
+from repro_torch.models.layers import COMPUTE_DTYPE, dense, embed
+from repro_torch.models.model import lm_logits
+from repro_torch.shard.apply import kv_heads, paged_attention_chunk_sharded
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
@@ -47,44 +48,50 @@ def supports_chunked_prefill(cfg: ArchConfig) -> bool:
 
 
 def _block_prefill(cfg: ArchConfig, p: Dict, st: Dict, x, positions,
-                   valid, window: int, table) -> torch.Tensor:
+                   valid, window: int, table, plan=None) -> torch.Tensor:
     """One layer over a [B, C, D] chunk: write C tokens' K/V into the
     layer's pages (in place), then attend all C queries over the updated
-    page table."""
+    page table.  Under a ``plan`` the projections run banded and a pool
+    banded by heads takes this rank's heads (`shard.apply`)."""
     scale = (cfg.head_dim ** -0.5) if cfg.attn_scale is None \
         else cfg.attn_scale
     q, k, v = attn._qkv(p["attn"], tfm._norm(cfg)(x, p["ln1"]),
                         cfg.n_heads, cfg.n_kv, cfg.head_dim, positions,
-                        cfg.rope_theta)
-    pool = kvs.update_chunk(st["kv"], table, k.float(), v.float(),
+                        cfg.rope_theta, plan=plan)
+    pool = kvs.update_chunk(st["kv"], table,
+                            kv_heads(plan, cfg.n_kv, k).float(),
+                            kv_heads(plan, cfg.n_kv, v).float(),
                             positions, valid=valid)
-    o = kvs.paged_attention_chunk(q, pool, table, positions, window,
-                                  scale=scale, cap=cfg.attn_softcap)
-    h = dense(attn._merge_heads(o.to(COMPUTE_DTYPE)), p["attn"]["wo"])
-    return tfm.ffn(cfg, p, x, h)[0]
+    o = paged_attention_chunk_sharded(plan, q, pool, table, positions,
+                                      window, n_kv=cfg.n_kv, scale=scale,
+                                      cap=cfg.attn_softcap)
+    h = dense(attn._merge_heads(o.to(COMPUTE_DTYPE)), p["attn"]["wo"],
+              plan=plan)
+    return tfm.ffn(cfg, p, x, h, plan=plan)[0]
 
 
 def _stack_prefill(cfg: ArchConfig, stacked: Dict, states: Dict, x,
-                   positions, valid, table) -> torch.Tensor:
+                   positions, valid, table, plan=None) -> torch.Tensor:
     """Every layer in turn over layer views of the stacked params and
     state (the JAX package's scan over layers); pools are written in
     place."""
     for i, window in enumerate(cfg.layer_windows()):
         x = _block_prefill(cfg, tfm.layer_view(stacked, i),
                            tfm.layer_view(states, i), x, positions, valid,
-                           window, table)
+                           window, table, plan=plan)
     return x
 
 
 def prefill_step(cfg: ArchConfig, params: Dict, state: Dict,
-                 tokens: torch.Tensor, n_tok: torch.Tensor
+                 tokens: torch.Tensor, n_tok: torch.Tensor, plan=None
                  ) -> Tuple[Dict, torch.Tensor]:
     """tokens [B, C], n_tok [B] (0 = idle slot) -> (state', logits
     [B, C, Vpad] f32).  Slot i's tokens occupy absolute positions
     ``state["pos"][i] .. + n_tok[i] - 1``; the caller makes sure those
     positions' pages exist in the table and samples from
     ``logits[i, n_tok[i] - 1]``.  The pools are written in place and
-    ``pos`` advances by ``n_tok``."""
+    ``pos`` advances by ``n_tok``.  ``plan``: the serving
+    `shard.ShardingPlan` (None: one device)."""
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"{cfg.name} ({cfg.family}) has per-token "
                          "recurrent state; chunked prefill unsupported")
@@ -97,13 +104,8 @@ def prefill_step(cfg: ArchConfig, params: Dict, state: Dict,
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x = _stack_prefill(cfg, params["layers"], state["layers"], x,
-                       positions, valid, table)
-    x = tfm._norm(cfg)(x, params["final_norm"])
-    if cfg.tie_embeddings:
-        logits = unembed(x, params["embed"])
-    else:
-        logits = _bf16_matmul(x, params["lm_head"])
-    logits = softcap(logits, cfg.final_softcap)
+                       positions, valid, table, plan=plan)
+    logits = lm_logits(cfg, params, tfm._norm(cfg)(x, params["final_norm"]))
     new_state = {"layers": state["layers"],
                  "pos": state["pos"] + n_tok.to(state["pos"].dtype),
                  "page_table": table}

@@ -1,8 +1,8 @@
 """The port stands alone: importing it (and the chip smoke script) loads
 neither JAX nor the reference package (the disaggregated and resilience
-layers, the backend registry and the emulator and cycle models
-included), and its entry point refuses to run on the CPU unless asked
-to."""
+layers, the backend registry, the emulator and cycle models and the shard
+layer included), nor does a spawned mesh rank, and its entry point
+refuses to run on the CPU unless asked to."""
 import os
 import pathlib
 import subprocess
@@ -37,6 +37,8 @@ def test_import_loads_no_jax_and_no_reference():
         "from repro_torch.api import registry, backends, dispatch\n"
         "from repro_torch.core import acsr, associative, aida_fc\n"
         "from repro_torch.core import aida_sim, eie_sim, device\n"
+        "import repro_torch.shard, repro_torch.launch.mesh\n"
+        "from repro_torch.shard import plan, partition, apply, comm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -90,5 +92,43 @@ def test_launcher_help_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     assert "--prefix-cache" in proc.stdout and "--device" in proc.stdout
     for flag in ("--disagg", "--prefill-slots", "--decode-slots",
-                 "--fault-plan", "--deadline-ticks", "--max-retries"):
+                 "--fault-plan", "--deadline-ticks", "--max-retries",
+                 "--mesh", "--mesh-backend"):
         assert flag in proc.stdout, flag
+
+
+def rank_modules(rank):
+    """A mesh rank's serve (2 ranks, gloo, a reduced llama3-8b in aida),
+    then the JAX and reference modules the rank has loaded."""
+    import sys
+    from repro_torch import CompressionSpec, Engine, Request, get
+    from repro_torch.configs import reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(2, backend="gloo", device="cpu")
+    eng = Engine(reduced(get("llama3-8b")), device="cpu").compress(
+        CompressionSpec(mode="aida", density=0.25), verbose=None)
+    sess = eng.session(batch_slots=2, max_len=32, mesh=mesh)
+    sess.submit(Request(prompt=[1, 2, 3], max_new=2, rid=0))
+    assert len(sess.run()[0].tokens) == 2
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_spawned_mesh_rank_loads_no_jax_and_no_reference(tmp_path):
+    """Ranks started by ``shard.comm.spawn`` from a process without JAX
+    serve without loading it (or the reference) either."""
+    code = (
+        "import sys\n"
+        "from repro_torch.shard import comm\n"
+        "import test_torch_isolation as t\n"
+        f"outs = comm.spawn(2, t.rank_modules, workdir={str(tmp_path)!r}, "
+        "threads=1, timeout=240)\n"
+        "assert outs == [[], []], outs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
