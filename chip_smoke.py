@@ -148,7 +148,24 @@ Phases, each of which exits non-zero when it fails:
     requests: rank 0's tokens and logits bit for bit the single-device
     serve's, both ranks the same tokens, each rank's launches as its
     layers and steps say, ms/step, kernels/step and gather ms/step
-    logged.
+    logged;
+15. checkpoints, restarts and data-parallel training (after hubert's
+    forward): ``python -m repro_torch.launch.train`` on qwen1.5-0.5b at
+    full width and depth (4 steps of 2 x 2048 tokens, a checkpoint every
+    2) uninterrupted and, beside it, killed with SIGKILL once step 2's
+    checkpoint is committed, then rerun: it reports resuming from the
+    newest committed step and writes step 4's files byte for byte the
+    uninterrupted run's; llama3-8b at full width, 2 layers, through K7 /
+    K8: 4 steps uninterrupted, then a run checkpointed at step 2 that
+    raises after step 3 and is resumed by ``RestartLoop`` (final params
+    ``torch.equal`` the uninterrupted run's, the step-2 checkpoint
+    restored onto the CPU equal to the card's step-2 state; save and
+    restore seconds and GB logged); two gloo ranks sharing the card train
+    qwen1.5-0.5b (1 x 2048 tokens a rank, 3 steps) with no compression
+    (params and losses bit for bit one device's at ``microbatches=2``),
+    bf16 and int8 on the wire (finite, falling losses, the ranks' params
+    the same digest; int8 within DP_INT8_LOSS_TOL of the uncompressed
+    losses), bytes a rank a step, gather ms and step ms logged.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
@@ -2777,6 +2794,426 @@ def train_families_phase(dev):
     return by_model
 
 
+# ------------------------------------------ checkpoint, restart, data parallel
+CKPT_LAYERS = 2       # llama3-8b at full width: 1.49 B params, 12 B each
+CKPT_STEPS = 4        # checkpointed at step 2, a fault after step 3
+LAUNCH_STEPS = 4      # a checkpoint every 2: killed at step 2's commit
+LAUNCH_TRAIN = ("--arch", "qwen1.5-0.5b", "--global-batch", "2", "--seq",
+                "2048", "--steps", str(LAUNCH_STEPS), "--ckpt-every", "2",
+                "--keep-last", "1", "--log-every", "1")
+DP_STEPS = 3          # qwen1.5-0.5b at full depth, 1 x 2048 tokens a rank
+DP_SCHEMES = (None, "bf16", "int8")
+#: the int8 wire's per-step loss against the uncompressed one's: about six
+#: times the 8.7e-4 read on an H100 at this size (a loss of 9.6 to 12.5)
+DP_INT8_LOSS_TOL = 5e-3
+
+
+def _state_bytes(state):
+    from repro_torch.checkpoint.ckpt import flatten
+    return sum(x.numel() * x.element_size() for x in flatten(state))
+
+
+def _need_disk(path, nbytes, what):
+    """Fail loudly, before any write, when ``path``'s disk cannot hold
+    ``nbytes``."""
+    import shutil
+    path.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(path).free
+    log(f"{what}: {nbytes / 1e9:.2f} GB needed, {free / 1e9:.2f} GB free "
+        f"under {path}")
+    if free < nbytes * 1.1:
+        raise AssertionError(f"{what}: {free / 1e9:.2f} GB free under "
+                             f"{path}, {nbytes / 1e9:.2f} GB needed")
+
+
+def _flash_counts(fns):
+    return {k: fns[k].launches for k in FLASH}
+
+
+def ckpt_restart_phase(dev):
+    """Checkpoint, kill and resume at llama3-8b's full width cut to
+    CKPT_LAYERS layers (``_train_config()``: flash, K7 / K8), 2 x 2048
+    tokens: CKPT_STEPS uninterrupted steps, then a run checkpointed at
+    step 2 that raises after step 3 and is resumed by ``RestartLoop``
+    from step 2's checkpoint.  The final params must equal the
+    uninterrupted run's (``torch.equal`` per leaf), and the step-2
+    checkpoint restored onto the CPU the card's step-2 state copied to
+    the host, leaf for leaf.  Returns the K7 / K8 launches."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.ckpt import flatten, unflatten
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime.fault_tolerance import RestartLoop
+    from repro_torch.train import trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _llama(CKPT_LAYERS)
+    tc = _train_config()
+    pc = PipelineConfig(seed=0, global_batch=2, seq_len=2048)
+    root = ROOT / "build" / "ckpt-smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    whole = trainer.run(cfg, tc, DataIterator(cfg, pc), CKPT_STEPS,
+                        log_every=0, device=dev)
+    nbytes = _state_bytes(whole)
+    want = [p.to("cpu", copy=True) for p in leaves(whole.params)]
+    # the state's structure on the meta device: a template costs nothing
+    skel = unflatten(whole, [torch.empty(x.shape, dtype=x.dtype,
+                                         device="meta")
+                             for x in flatten(whole)])
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    _need_disk(root, 2 * nbytes, "checkpoint phase")
+    times = {}
+
+    class Timed(CheckpointManager):
+        """Times save and restore; keeps the card's state as saved."""
+
+        def save(self, step, tree, extra=None, blocking=False):
+            self.card_copy = [x.to("cpu", copy=True) for x in flatten(tree)]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            super().save(step, tree, extra=extra)
+            times["snapshot"] = time.perf_counter() - t0
+            self.wait()
+            times["save"] = time.perf_counter() - t0
+
+        def restore(self, template, step=None, device=None):
+            t0 = time.perf_counter()
+            out = super().restore(template, step=step, device=device)
+            if device is None or torch.device(device).type == "cuda":
+                torch.cuda.synchronize(dev)
+            times[f"restore {device or dev}"] = time.perf_counter() - t0
+            return out
+
+    mgr = Timed(str(root), keep_last=1)
+    calls, final = [], {}
+
+    def run_fn(resume):
+        calls.append(resume)
+        state, start = None, 0
+        if resume is not None:
+            state, extra = mgr.restore(skel, device=dev)
+            start = extra["data"]["step"]
+        it = DataIterator(cfg, pc, start_step=start)
+        state = trainer.run(cfg, tc, it, 3 if resume is None
+                            else CKPT_STEPS - start, state=state,
+                            log_every=0, device=dev,
+                            ckpt_mgr=mgr if resume is None else None,
+                            ckpt_every=2)
+        if resume is None:
+            raise RuntimeError("fault injected after step 3")
+        final["state"] = state
+
+    restarts = RestartLoop(mgr, log=log).supervise(run_fn)
+    state = final.pop("state")
+    got = leaves(state.params)
+    same = len(got) == len(want) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    del got, want, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    host, _ = mgr.restore(skel, step=2, device="cpu")
+    host = flatten(host)
+    n_leaves = len(mgr.card_copy)
+    saved = len(host) == n_leaves and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(host, mgr.card_copy))
+    del host, mgr.card_copy
+    counts = _flash_counts(fns)
+    steps = CKPT_STEPS + 3 + (CKPT_STEPS - 2)
+    want_counts = dict.fromkeys(FLASH, CKPT_LAYERS * steps)
+    want_counts["flash_attention_fwd"] *= 2      # "dots" recomputes it
+    log(f"checkpoint phase: llama3-8b {CKPT_LAYERS} layers, "
+        f"{nbytes / 1e9:.2f} GB a checkpoint ({n_leaves} leaves): save "
+        f"{times['save']:.2f} s (host copy {times['snapshot']:.2f} s, then "
+        f"written), restore onto the card "
+        f"{times[f'restore {dev}']:.2f} s, onto the CPU "
+        f"{times['restore cpu']:.2f} s (file cache warm); restarts "
+        f"{restarts}, resumed from {calls[1:]}; final params "
+        f"{'equal to' if same else 'DIFFER from'} the uninterrupted run's; "
+        f"the step-2 checkpoint on the CPU "
+        f"{'equals' if saved else 'DIFFERS from'} the card's state; "
+        f"launches {json.dumps(counts)}")
+    shutil.rmtree(root, ignore_errors=True)
+    if restarts != 1 or calls != [None, 2] or not same or not saved or \
+            counts != want_counts:
+        raise AssertionError(f"checkpoint phase: restarts {restarts}, "
+                             f"calls {calls}, params equal {same}, "
+                             f"checkpoint equal {saved}, launches {counts} "
+                             f"(expected {want_counts})")
+    return {"llama3-8b": counts}
+
+
+def _launch_train(ckpt_dir, popen=False):
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_TRAIN,
+           "--ckpt-dir", str(ckpt_dir)]
+    if popen:
+        return subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, text=True,
+                          capture_output=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _same_bytes(a, b, chunk=64 << 20):
+    """Whether files ``a`` and ``b`` hold the same bytes (read in chunks
+    of 64 MiB: ``filecmp`` reads 8 KiB at a time)."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def launcher_restart_phase(dev):
+    """``python -m repro_torch.launch.train`` on qwen1.5-0.5b at full width
+    and depth (LAUNCH_TRAIN: LAUNCH_STEPS steps of 2 x 2048 tokens, a
+    checkpoint every 2, one kept): once uninterrupted and, beside it on
+    the same card, once killed with SIGKILL as soon as step 2's
+    checkpoint is committed; then the killed command again, which must
+    report resuming from the newest committed step and write the last
+    step's files byte for byte the uninterrupted run's.  (The launcher trains with the JAX package's
+    default attention, einsum: no kernel of the port on this path.)"""
+    import os
+    import signal
+    import shutil
+
+    import torch
+    from repro_torch import get
+    from repro_torch.checkpoint import CheckpointManager
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "launch-smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    nbytes = 12 * get("qwen1.5-0.5b").params_count()
+    _need_disk(root, 4 * nbytes, "launcher phase")
+    t0 = time.perf_counter()
+    whole = _launch_train(root / "whole", popen=True)
+    killed = root / "killed"
+    proc = _launch_train(killed, popen=True)
+    marker = killed / "step_00000002" / ".COMMITTED"
+    while not marker.exists() and proc.poll() is None:
+        time.sleep(0.05)
+    if proc.poll() is not None:
+        raise AssertionError("launch.train ended before step 2 was "
+                             f"committed:\n{proc.communicate()[0][-3000:]}")
+    os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+    t_killed = time.perf_counter() - t0
+    newest = CheckpointManager(str(killed)).latest_step()
+    t1 = time.perf_counter()
+    resumed = _launch_train(killed)
+    t_resumed = time.perf_counter() - t1
+    out = whole.communicate(timeout=600)[0]
+    t_whole = time.perf_counter() - t0
+    if whole.returncode != 0:
+        raise AssertionError(f"launch.train exited {whole.returncode}:\n"
+                             f"{out[-3000:]}")
+    last = f"step_{LAUNCH_STEPS:08d}"
+    a, b = root / "whole" / last, killed / last
+    names = sorted(os.listdir(a))
+    same = names == sorted(os.listdir(b)) and all(
+        _same_bytes(a / n, b / n) for n in names)
+    line = f"[launch] restored step {newest}"
+    losses = [ln for ln in resumed.splitlines() if ln.startswith("step ")]
+    log(f"launcher phase: qwen1.5-0.5b {' '.join(LAUNCH_TRAIN)}: "
+        f"killed (SIGKILL) at step {newest}'s commit {t_killed:.1f} s "
+        f"after its start, resumed in {t_resumed:.1f} s "
+        f"({'reports' if line in resumed else 'does NOT report'} "
+        f"{line!r}; {losses}); the uninterrupted run beside them "
+        f"{t_whole:.1f} s; {last}'s {len(names)} files "
+        f"{'byte for byte equal' if same else 'DIFFER'} "
+        f"({nbytes / 1e9:.2f} GB a checkpoint)")
+    shutil.rmtree(root, ignore_errors=True)
+    if newest is None or not 2 <= newest < LAUNCH_STEPS or \
+            line not in resumed or \
+            not same:
+        raise AssertionError("launcher phase: the resumed run did not "
+                             "resume from the newest checkpoint or did not "
+                             "write the uninterrupted run's files")
+
+
+def _dp_batches(cfg, dev):
+    import torch
+    from repro_torch.data.pipeline import DataIterator, PipelineConfig
+    it = DataIterator(cfg, PipelineConfig(seed=0, global_batch=2,
+                                          seq_len=2048))
+    return [{k: torch.as_tensor(v, device=dev) for k, v in next(it).items()}
+            for _ in range(DP_STEPS)]
+
+
+def _dp_config(scheme, microbatches=1):
+    import dataclasses
+    return dataclasses.replace(_train_config(), grad_compression=scheme,
+                               microbatches=microbatches)
+
+
+def _digest(params):
+    """Per leaf, the int64 sum of its 32-bit words weighted by their
+    position (mod 65521, plus 1): one small tensor that ranks holding
+    other params would not share."""
+    import torch
+    from repro_torch.optim.adamw import leaves
+    out = []
+    for p in leaves(params):
+        w = p.detach().contiguous().reshape(-1).view(torch.int32).long()
+        out.append((w * (torch.arange(w.numel(), device=w.device) % 65521
+                         + 1)).sum())
+    return torch.stack(out)
+
+
+def _dp_rank(rank, one_path):
+    """One of two data-parallel ranks sharing the card over gloo:
+    DP_STEPS steps of qwen1.5-0.5b under each wire scheme, timed;
+    uncompressed, the params checked against one device's bit for bit,
+    compressed, the ranks' digests of their params checked equal."""
+    import torch
+    from repro_torch import get
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.shard import comm
+    from repro_torch.train import trainer
+    mesh = make_host_mesh(1, 2, backend="gloo", device="cuda:0")
+    dev = mesh.device
+    cfg = get("qwen1.5-0.5b")
+    batches = _dp_batches(cfg, dev)
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    out = {}
+    for scheme in DP_SCHEMES:
+        state = trainer.init_state(cfg, torch.Generator(
+            device=dev).manual_seed(0))
+        step = trainer.make_train_step(cfg, _dp_config(scheme), mesh=mesh)
+        losses, ms = [], []
+        comm.reset_stats(timed=True)
+        for batch in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        stats = dict(comm.STATS)
+        row = {"losses": losses, "ms": ms,
+               "bytes": stats["bytes"] / DP_STEPS,
+               "gather_ms": stats["seconds"] * 1e3 / DP_STEPS,
+               "gathers": stats["gathers"] / DP_STEPS}
+        if scheme is None:          # both equal to one device: they agree
+            one = torch.load(one_path, weights_only=False)
+            row["one_device"] = one["losses"] == losses and all(
+                torch.equal(a.cpu(), b)
+                for a, b in zip(leaves(state.params), one["params"]))
+            row["agree"] = row["one_device"]
+            del one
+        else:
+            row["agree"] = comm.all_equal(_digest(state.params))
+        out[scheme] = row
+        del state, step
+        torch.cuda.empty_cache()
+    out["launches"] = _flash_counts(fns)
+    return out
+
+
+def dp_train_phase(dev):
+    """Data-parallel training on the card: two gloo ranks sharing it
+    (``make_train_step(mesh=)``), qwen1.5-0.5b at full width and depth,
+    1 x 2048 tokens a rank, DP_STEPS steps under no compression, bf16 and
+    int8 on the wire.  Uncompressed, both ranks' params and losses equal
+    one device's at ``microbatches=2`` (run here first) bit for bit;
+    bf16 / int8 give finite, falling losses, int8 within DP_INT8_LOSS_TOL
+    of the uncompressed run's.  Logs bytes on the wire a step, gather ms
+    and step ms.  Returns the K7 / K8 launches of both ranks and the one
+    device."""
+    import shutil
+
+    import torch
+    from repro_torch import get
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.shard import comm
+    from repro_torch.train import trainer
+    torch.cuda.empty_cache()
+    cfg = get("qwen1.5-0.5b")
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    state = trainer.init_state(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+    step = trainer.make_train_step(cfg, _dp_config(None, microbatches=2))
+    losses = []
+    for batch in _dp_batches(cfg, dev):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    counts = _flash_counts(fns)
+    root = ROOT / "build" / "dp-smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    one_path = root / "one.pt"
+    torch.save({"losses": losses,
+                "params": [p.cpu() for p in leaves(state.params)]}, one_path)
+    del state, step
+    torch.cuda.empty_cache()
+    ranks = comm.spawn(2, _dp_rank, (str(one_path),), backend="gloo",
+                       timeout=900)
+    shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    base = r0[None]["losses"]
+    for scheme in DP_SCHEMES:
+        row = r0[scheme]
+        log(f"dp train qwen1.5-0.5b, 2 ranks x 1 x 2048 over gloo on one "
+            f"card, wire {scheme or 'f32'}: losses {row['losses']}, step ms "
+            f"{[round(x, 2) for x in row['ms']]}, {row['bytes'] / 1e6:.2f} "
+            f"MB a rank a step in {row['gathers']:.0f} gather, gather "
+            f"{row['gather_ms']:.2f} ms a step (host clock, card "
+            f"synchronised), ranks {'agree' if row['agree'] else 'DIFFER'}")
+    log(f"dp train: one device at microbatches=2, losses {losses}; the "
+        f"ranks' uncompressed params and losses "
+        f"{'equal' if r0[None]['one_device'] else 'DIFFER from'} it bit "
+        "for bit")
+    bad = []
+    for r in ranks:
+        if not r[None]["one_device"]:
+            bad.append("uncompressed ranks differ from one device")
+        for scheme in DP_SCHEMES:
+            row = r[scheme]
+            if not row["agree"] or row["losses"] != r0[scheme]["losses"]:
+                bad.append(f"{scheme}: the ranks disagree")
+            if not all(x == x and abs(x) < float("inf")
+                       for x in row["losses"]) or \
+                    not row["losses"][-1] < row["losses"][0]:
+                bad.append(f"{scheme}: losses not finite and falling")
+    gap = max(abs(a - b) for a, b in zip(r0["int8"]["losses"], base))
+    if gap > DP_INT8_LOSS_TOL:
+        bad.append(f"int8 losses {gap} from the uncompressed run's")
+    want = {k: cfg.n_layers * DP_STEPS * len(DP_SCHEMES) for k in FLASH}
+    want["flash_attention_fwd"] *= 2
+    for r in ranks:
+        if r["launches"] != want:
+            bad.append(f"rank launches {r['launches']} are not {want}")
+    if bad:
+        raise AssertionError("dp train: " + "; ".join(bad))
+    return {"qwen1.5-0.5b": {k: counts[k] + sum(r["launches"][k]
+                                                 for r in ranks)
+                             for k in FLASH}}
+
+
 def families_cross_check(dev):
     """Each new family served on the card and on the CPU from the same
     weights, at a reduced config that keeps the real head dim (``reduced``
@@ -3748,6 +4185,15 @@ def main(argv=None) -> int:
         "hubert forward", hubert_forward_phase, dev)
     for name in FLASH:
         flash_launches[name]["llama3-8b"] = train_counts[name]
+    # checkpoint / restart and data-parallel training: K7 / K8 again
+    _timed("launcher restart", launcher_restart_phase, dev)
+    for phase in (_timed("checkpoint restart", ckpt_restart_phase, dev),
+                  _timed("dp train", dp_train_phase, dev)):
+        for model, counts in phase.items():
+            for name in FLASH:
+                flash_launches[name][model] = \
+                    flash_launches[name].get(model, 0) + counts[name]
+    for name in FLASH:
         launches[name] = sum(flash_launches[name].values())
     _timed("cross-check", cross_check, dev)
     _timed("train cross-check", train_cross_check, dev)

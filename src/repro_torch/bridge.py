@@ -36,11 +36,11 @@ from repro_torch.train.trainer import TrainState
 
 def tensor(a, device=None) -> torch.Tensor:
     """numpy array (bfloat16 from ml_dtypes included) -> torch tensor."""
-    a = np.asarray(a)
+    a = np.array(a, order="C", copy=True)     # a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _blocked(b, device) -> BlockedACSR:

@@ -1,0 +1,2 @@
+"""Checkpoints of the port, in the JAX package's on-disk format."""
+from repro_torch.checkpoint.ckpt import CheckpointManager  # noqa: F401

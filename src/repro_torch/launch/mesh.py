@@ -93,6 +93,8 @@ def make_host_mesh(n_model: Optional[int] = None,
         if group_backend == "nccl":
             device = torch.device("cuda", rank)
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if group_backend == "nccl" and device.type != "cuda":
         raise ValueError("an nccl mesh runs each rank on its card; "
                          f"got device {device}")

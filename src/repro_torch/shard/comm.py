@@ -1,13 +1,17 @@
-"""Collectives of the serving mesh, and the helper that starts its ranks.
+"""Collectives of the mesh, and the helper that starts its ranks.
 
 The shard layer needs two collectives over a model-axis group: the
 all-gather that joins the ranks' output bands along the feature axis
 (the gather policy) and the all-reduce sum of partial products (int8's
 psum policy): the list form of ``dist.all_gather`` (what torch 2.11 and
 later both take) and ``dist.all_reduce``, on the group's own backend; a
-collective that fails raises, and the call with it.  ``STATS`` counts the collectives
-and, when ``STATS["timed"]`` is set, the host seconds spent in them
-(synchronising the card around each, so the count includes its wait).
+collective that fails raises, and the call with it.  Data-parallel
+training gathers every rank's gradients as one buffer a step
+(:func:`pack` / :func:`unpack`, :func:`all_gather_list`), and each rank
+adds them in rank order.  ``STATS`` counts the collectives and the bytes
+this rank sent into gathers and, when ``STATS["timed"]`` is set, the host
+seconds spent in them (synchronising the card around each, so the count
+includes its wait).
 
 :func:`spawn` runs ``target(rank, *args)`` in ``n`` fresh processes that
 form one process group through a ``file://`` rendezvous, and returns the
@@ -29,14 +33,16 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-#: collectives run, and the host seconds spent in them (when timed)
-STATS = {"gathers": 0, "reduces": 0, "seconds": 0.0, "timed": False}
+#: collectives run, the bytes this rank sent into gathers, and the host
+#: seconds spent in them (when timed)
+STATS = {"gathers": 0, "reduces": 0, "bytes": 0, "seconds": 0.0,
+         "timed": False}
 #: seconds a rank waits in a collective before the group gives up
 GROUP_TIMEOUT = 120.0
 
 
 def reset_stats(timed: bool = False) -> None:
-    STATS.update(gathers=0, reduces=0, seconds=0.0, timed=timed)
+    STATS.update(gathers=0, reduces=0, bytes=0, seconds=0.0, timed=timed)
 
 
 class _Timed:
@@ -56,9 +62,9 @@ class _Timed:
             STATS["seconds"] += time.perf_counter() - self.t0
 
 
-def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """The group's ranks' ``x`` (one shape on every rank) concatenated
-    along ``dim`` in rank order."""
+def all_gather_list(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """The group's ranks' ``x`` (one shape on every rank), in rank
+    order."""
     import torch.distributed as dist
     x = x.contiguous()
     parts = [torch.empty_like(x)
@@ -66,7 +72,46 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     with _Timed(x):
         dist.all_gather(parts, x, group=group)
     STATS["gathers"] += 1
-    return torch.cat(parts, dim=dim)
+    STATS["bytes"] += x.numel() * x.element_size()
+    return parts
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The group's ranks' ``x`` (one shape on every rank) concatenated
+    along ``dim`` in rank order."""
+    return torch.cat(all_gather_list(x, group), dim=dim)
+
+
+#: bytes each part of a packed buffer starts on (a multiple of any item)
+_ALIGN = 8
+
+
+def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One uint8 buffer holding the bytes of every tensor in order (each
+    part starting on an 8-byte boundary), so many tensors travel in one
+    collective."""
+    parts = []
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        parts.append(b)
+        pad = (-b.numel()) % _ALIGN
+        if pad:
+            parts.append(b.new_zeros(pad))
+    return torch.cat(parts)
+
+
+def unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    """The tensors :func:`pack` put in ``buf``, given tensors ``like``
+    them (shape and dtype), as views of ``buf``."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[off:off + n].view(t.dtype).reshape(t.shape))
+        off += n + (-n) % _ALIGN
+    if off != buf.numel():
+        raise ValueError(f"buffer of {buf.numel()} bytes holds {off}")
+    return out
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

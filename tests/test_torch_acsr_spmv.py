@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import module_compile_cache  # noqa: F401
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.core import acsr as jacsr
 from repro.core import codebook as jcb
 from repro.core import sparse_fc as jsfc

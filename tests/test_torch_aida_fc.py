@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.api import FCProblem as JFCProblem
 from repro.core import acsr as jacsr
 from repro.core import aida_fc as jfc

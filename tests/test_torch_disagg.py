@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import module_compile_cache  # noqa: F401
 from repro import kvstore as jkvs
 from repro import obs as jobs
 from repro.api import CompressionSpec as JSpec

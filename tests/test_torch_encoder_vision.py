@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import module_compile_cache  # noqa: F401
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.configs import get as jget
 from repro.configs import reduced as jreduced
 from repro.data import pipeline as jpipe

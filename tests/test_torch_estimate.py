@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.api import Engine as JEngine
 from repro.api import FCProblem as JFCProblem
 from repro.api import get_backend as jget_backend

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.kernels import int8_matmul as jint8
 from repro.kernels import lut_matmul as jlut
 from repro_torch.core import codebook as tcb

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import module_compile_cache  # noqa: F401
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import (flash_attention_bwd,

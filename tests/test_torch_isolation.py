@@ -1,8 +1,9 @@
 """The port stands alone: importing it (and the chip smoke script) loads
 neither JAX nor the reference package (the disaggregated and resilience
-layers, the backend registry, the emulator and cycle models and the shard
-layer included), nor does a spawned mesh rank, and its entry point
-refuses to run on the CPU unless asked to."""
+layers, the backend registry, the emulator and cycle models, the shard
+layer, checkpoints, the training launcher and the examples included), nor
+does a spawned mesh rank or data-parallel training rank, and its entry
+points refuse to run on the CPU unless asked to."""
 import os
 import pathlib
 import subprocess
@@ -39,6 +40,10 @@ def test_import_loads_no_jax_and_no_reference():
         "from repro_torch.core import aida_sim, eie_sim, device\n"
         "import repro_torch.shard, repro_torch.launch.mesh\n"
         "from repro_torch.shard import plan, partition, apply, comm\n"
+        "import repro_torch.checkpoint, repro_torch.launch.train\n"
+        "from repro_torch.checkpoint import ckpt\n"
+        "from repro_torch.examples import quickstart, train_llm\n"
+        "from repro_torch.examples import serve_aida, aida_emulator_demo\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -70,6 +75,31 @@ def test_engine_without_device_needs_a_card():
     assert Engine(get("llama3-8b"), device="cpu").device.type == "cpu"
 
 
+EXAMPLES = ("quickstart", "train_llm", "serve_aida", "aida_emulator_demo")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_without_device_needs_a_card(name, monkeypatch):
+    """The examples run on the card unless ``--device cpu``: without a
+    card they stop before any work with resolve_device's error."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is the card")
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+
+
+def test_train_launcher_without_device_needs_a_card(capsys):
+    from repro_torch.launch import train as tlaunch
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is the card")
+    with pytest.raises(SystemExit) as e:
+        tlaunch.main(["--arch", "llama3-8b"])
+    assert e.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 
 def test_launcher_help_loads_no_jax_and_no_reference():
     """``python -m repro_torch.launch.serve --help`` runs with the
@@ -94,6 +124,35 @@ def test_launcher_help_loads_no_jax_and_no_reference():
     for flag in ("--disagg", "--prefill-slots", "--decode-slots",
                  "--fault-plan", "--deadline-ticks", "--max-retries",
                  "--mesh", "--mesh-backend"):
+        assert flag in proc.stdout, flag
+
+
+@pytest.mark.parametrize("module,flags", [
+    ("repro_torch.launch.train", ("--arch", "--steps", "--global-batch",
+                                  "--seq", "--lr", "--microbatches", "--remat",
+                                  "--grad-compression", "--multi-pod",
+                                  "--local-mesh", "--ckpt-dir", "--ckpt-every",
+                                  "--device")),
+    *((f"repro_torch.examples.{name}", ("--device",)) for name in EXAMPLES)])
+def test_train_launcher_and_examples_help_load_no_jax(module, flags):
+    """``python -m <module> --help`` for the training launcher and every
+    example runs with JAX and the reference package made unimportable."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'repro')))\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for flag in flags:
         assert flag in proc.stdout, flag
 
 
@@ -122,6 +181,48 @@ def test_spawned_mesh_rank_loads_no_jax_and_no_reference(tmp_path):
         "from repro_torch.shard import comm\n"
         "import test_torch_isolation as t\n"
         f"outs = comm.spawn(2, t.rank_modules, workdir={str(tmp_path)!r}, "
+        "threads=1, timeout=240)\n"
+        "assert outs == [[], []], outs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def dp_rank_modules(rank):
+    """A data-parallel training rank's step (2 ranks, gloo, a reduced
+    llama3-8b, int8 on the wire), then the JAX and reference modules the
+    rank has loaded."""
+    import sys
+    from repro_torch import get
+    from repro_torch.configs import reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import trainer
+    mesh = make_host_mesh(1, 2, backend="gloo", device="cpu")
+    cfg = reduced(get("llama3-8b"))
+    state = trainer.init_state(cfg, torch.Generator().manual_seed(0))
+    step = trainer.make_train_step(cfg, trainer.TrainConfig(
+        remat="none", grad_compression="int8"), mesh=mesh)
+    tokens = torch.arange(64, dtype=torch.int32).reshape(2, 32) % cfg.vocab
+    state, m = step(state, {"tokens": tokens})
+    assert bool(torch.isfinite(m["loss"]))
+    assert trainer.params_agree(state.params, mesh)
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_spawned_training_rank_loads_no_jax_and_no_reference(tmp_path):
+    """Data-parallel training ranks started by ``shard.comm.spawn`` from a
+    process without JAX train without loading it (or the reference)."""
+    code = (
+        "import sys\n"
+        "from repro_torch.shard import comm\n"
+        "import test_torch_isolation as t\n"
+        f"outs = comm.spawn(2, t.dp_rank_modules, workdir={str(tmp_path)!r}, "
         "threads=1, timeout=240)\n"
         "assert outs == [[], []], outs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

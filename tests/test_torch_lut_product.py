@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro.kernels.lut_matmul import lut_product_matmul as jlut_product
 from repro_torch.kernels import lut_matmul as tlm

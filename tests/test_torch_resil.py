@@ -17,6 +17,7 @@ import torch
 from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
+from port_test_env import module_compile_cache  # noqa: F401
 from repro import obs as jobs
 from repro import resil as jrsl
 from repro.api.session import Request as JRequest

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import module_compile_cache  # noqa: F401
+from port_test_env import one_torch_thread  # noqa: F401
 from repro.api import CompressionSpec as JSpec
 from repro.api import Engine as JEngine
 from repro.api import Request as JRequest

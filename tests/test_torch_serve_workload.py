@@ -16,6 +16,8 @@ import torch
 from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
+from port_test_env import module_compile_cache  # noqa: F401
+from port_test_env import one_torch_thread  # noqa: F401
 from repro import obs as jobs
 from repro.api import env as jenv
 from repro.api.session import Request as JRequest

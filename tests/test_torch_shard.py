@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_test_env import module_compile_cache  # noqa: F401
 from repro.api import CompressionSpec as JSpec
 from repro.core import sparse_fc as jsfc
 from repro.launch import mesh as jmesh
