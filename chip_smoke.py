@@ -6,7 +6,8 @@
 
 Phases, each of which exits non-zero when it fails:
 
-1. build the seven CUDA libraries (eleven kernels) from
+1. build the nine CUDA libraries (eleven kernels; the paged-attention
+   source once for each of its three ranges) from
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) and print the
    card (nvidia-smi name, power limit);
 2. K1 (blocked-ACSR SpMV: a gather kernel up to 8 columns, a wide
@@ -33,7 +34,14 @@ Phases, each of which exits non-zero when it fails:
 5. K4 (int8 FC) and K5 (codebook4 FC) against their plain versions at the
    seven projections, M = 4 and 32 rows, with bias and silu, and at
    gemma2-2b's gate with gelu; every call twice, bit-identical, and every
-   row alone bit-identical to the same row among 4 and among 32;
+   row alone bit-identical to the same row among 4 and among 32; then
+   the tuner's candidate launch plans (``tune``, `kernels.tune`) at
+   llama3-8b's shapes, each timed beside today's default: K1's (sy,
+   nsplit) within tolerance at 4 and 32 columns, each column bit for bit
+   alone; K4 / K5's K splits within tolerance at 4 and 32 rows, each row
+   alone bit for bit among 32; K2 / K3's ranges and K3's query tiles at
+   contexts 37, 2048 and 8192 (bf16 and int8 pages), K2 within tolerance
+   and K3 at C = 8 bit for bit K2 on each query;
 6. K7 (flash forward) and K8 (flash dq, dkv) against their plain versions
    at B=2, H=32, Hkv=8, T=2048, D=128 bf16 causal and over a grid
    (windows, softcaps, non-causal, Hkv 1-32, D 64 / 80 / 96 / 128 / 256,
@@ -166,6 +174,11 @@ Phases, each of which exits non-zero when it fails:
     bf16 and int8 on the wire (finite, falling losses, the ranks' params
     the same digest; int8 within DP_INT8_LOSS_TOL of the uncompressed
     losses), bytes a rank a step, gather ms and step ms logged.
+
+Every session on the card pre-tunes its kernels first (`Engine._pretune`,
+logged with its seconds and new winners); the serves' launch counts
+leave the tuner's own launches out (`tune.launches`, the kernels line's
+``tune_launches``), and the winners are logged after phase 9.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
@@ -955,6 +968,208 @@ def fc_phase(dev, flush):
         raise AssertionError("K4/K5: results that should repeat bit for "
                              "bit differ: " + "; ".join(unequal))
     return errs, tot
+
+
+# ---------------------------------------------------------------- tuner
+TUNE_CONTEXTS = (37, 2048, 8192)
+TUNE_ROWS = (4, 32)            # a decode step's and a chunk-8 step's
+
+
+def _us(fn, flush):
+    """Device microseconds of one call of ``fn`` (median of 10)."""
+    return median_ms(fn, iters=10, warmup=2, flush=flush)[0] * 1e3
+
+
+def _tune_table(label, key, cands, times, default):
+    """Log every candidate's µs (summed over ``times``' shapes), the
+    winner and the default beside it; returns the winner."""
+    tot = [sum(t.values()) for t in times]
+    win = min(range(len(cands)), key=lambda i: tot[i])
+    cells = "; ".join(
+        f"{json.dumps(dict(c.tiles))} "
+        + " ".join(f"{k}={v:.1f}" for k, v in t.items())
+        + (" [default]" if c == default else "")
+        for c, t in zip(cands, times))
+    log(f"tune {label} {key}: {cells}; winner {json.dumps(dict(cands[win].tiles))}"
+        f" {tot[win]:.1f} us vs default {tot[cands.index(default)]:.1f} us")
+    return cands[win], tot[win], tot[cands.index(default)]
+
+
+def tune_phase(dev, flush):
+    """The tuner's candidate launch plans at llama3-8b's shapes, each held
+    to what the plan must keep (`kernels.tune`): every candidate timed
+    (device µs), the winner beside today's default.  K1 (aida 0.25, the
+    seven projections): every (sy, nsplit) candidate within K1's
+    tolerance of the plain version at 4 and 32 columns, and each column
+    at 4 and at 32 columns bit for bit the same column alone.  K4 / K5
+    (the seven projections): every K split within tolerance at 4 and 32
+    rows, and each row alone bit for bit the same row among 32.  K2 / K3
+    (H 32 / Hkv 8, Dh 128, pages of 16, bf16 and int8) at contexts
+    TUNE_CONTEXTS: under every range K2 within tolerance of its plain
+    version, and under every range and query tile K3 at C = 8 bit for bit
+    K2 on each of its queries.  Nothing is recorded in the tuner's cache:
+    the serves tune their own geometries.  Returns {kernel: (winner µs,
+    default µs) summed over its shapes}."""
+    import torch
+    from repro_torch.core import sparse_fc as sfc
+    from repro_torch.kernels import acsr_spmv as sp
+    from repro_torch.kernels import build, ref, tune
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kvstore.paged_attention import (paged_attention,
+                                                     paged_attention_chunk)
+    sms = build.sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gain = {}
+
+    def add(name, won, default):
+        w, d = gain.get(name, (0.0, 0.0))
+        gain[name] = (w + won, d + default)
+
+    for name, n_out, n_in in PROJECTIONS:           # K1
+        w = _k1_weight(gen, dev, n_out, n_in, name)
+        b = sfc.compress(w, mode="aida", density=0.25).blocked
+        del w
+        key = tune.acsr_key(b.nblocks, b.rmax, b.block_rows, n_in, True, sms)
+        xs = torch.randn((n_in, max(TUNE_ROWS)), generator=gen, device=dev)
+        plain = {m: ref.blocked_acsr_spmv_ref(
+            b.values, b.col_idx, b.row_nnz, xs[:, :m].contiguous(),
+            b.centroids, None, None)[:n_out] for m in TUNE_ROWS}
+        cands = tune.acsr_candidates(b.nblocks, b.rmax, b.block_rows, sms)
+        times = []
+        for cand in cands:
+            with tune.trial(key, cand):
+                alone = torch.stack([sp.acsr_spmv(b, xs[:, j].contiguous())
+                                     for j in range(xs.shape[1])], 1)
+                t = {}
+                for m in TUNE_ROWS:
+                    x = xs[:, :m].contiguous()
+                    out = sp.acsr_spmv(b, x)
+                    what = f"K1 {name} {dict(cand.tiles)} B={m}"
+                    check_close(what, out, plain[m], 1e-4, 1e-4)
+                    if not torch.equal(out, alone[:, :m]):
+                        raise AssertionError(f"{what}: a column differs "
+                                             "from the same column alone")
+                    t[f"B{m}"] = _us(lambda: sp.acsr_spmv(b, x), flush)
+            times.append(t)
+        won, t_w, t_d = _tune_table(f"K1 {name}", key, cands, times,
+                                    cands[0])
+        add("acsr_spmv", t_w, t_d)
+        del b, xs, plain
+    for name, n_out, n_in in PROJECTIONS:           # K4, K5
+        w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
+            n_in ** -0.5
+        x = torch.randn((max(TUNE_ROWS), n_in), generator=gen, device=dev)
+        for mode in ("int8", "codebook4"):
+            layer = sfc.compress(w, mode=mode)
+            if mode == "int8":
+                wts = (layer.qt.q, layer.qt.scale)
+                kern, plain_fn = i8.int8_matmul, i8.int8_matmul_ref
+            else:
+                wts = (layer.codes_packed, layer.centroids)
+                kern, plain_fn = lm.lut_matmul, lm.lut_matmul_ref
+            key = tune.fc_key(mode, n_out, n_in, sms)
+            cands = tune.fc_candidates(n_out, n_in, sms)
+            times = []
+            for cand in cands:
+                with tune.trial(key, cand):
+                    alone = torch.cat([kern(x[i:i + 1], *wts)
+                                       for i in range(x.shape[0])])
+                    t = {}
+                    for m in TUNE_ROWS:
+                        xm = x[:m].contiguous()
+                        out = kern(xm, *wts)
+                        what = f"{mode} {name} {dict(cand.tiles)} M={m}"
+                        check_close(what, out, plain_fn(xm, *wts, None, None),
+                                    1e-4, 1e-4)
+                        if m == max(TUNE_ROWS) and not torch.equal(out,
+                                                                   alone):
+                            raise AssertionError(f"{what}: a row alone "
+                                                 "differs from it among "
+                                                 f"{m}")
+                        t[f"M{m}"] = _us(lambda: kern(xm, *wts), flush)
+                times.append(t)
+            won, t_w, t_d = _tune_table(f"{mode} {name}", key, cands, times,
+                                        cands[0])
+            add(mode, t_w, t_d)
+            del layer
+        del w, x
+    for kv in ("bf16", "int8"):                     # K2, K3
+        for ctx in TUNE_CONTEXTS:
+            q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv, 8)
+            b, h, c, dh = q.shape
+            hkv, ps = pool.k_pages.shape[1], pool.k_pages.shape[2]
+            scale = dh ** -0.5
+            rkey = tune.paged_key(hkv, h // hkv, dh, ps, kv == "int8", sms)
+            ckey = tune.paged_chunk_key(hkv, h // hkv, dh, ps, c,
+                                        kv == "int8", sms)
+            qd, cur = q[:, :, -1].contiguous(), q_pos[:, -1].contiguous()
+            plain = ref.paged_attention_ref(qd, *pool, table, cur, -1, scale,
+                                            None)
+            ranges = tune.paged_candidates()
+            qts = tune.paged_chunk_candidates(c, h // hkv)
+            rtimes, qtimes = [], {}
+            for rc in ranges:
+                with tune.trial(rkey, rc):
+                    out = paged_attention(qd, pool, table, cur, -1,
+                                          scale=scale)
+                    what = f"K2 {kv} ctx={ctx} {dict(rc.tiles)}"
+                    check_close(what, out, plain, 0, 1e-4)
+                    dec = [paged_attention(q[:, :, ci].contiguous(), pool,
+                                           table,
+                                           q_pos[:, ci].contiguous(), -1,
+                                           scale=scale) for ci in range(c)]
+                    t = {"K2": _us(lambda: paged_attention(
+                        qd, pool, table, cur, -1, scale=scale), flush)}
+                    for qc in qts:
+                        with tune.trial(ckey, qc):
+                            got = paged_attention_chunk(q, pool, table,
+                                                        q_pos, -1,
+                                                        scale=scale)
+                            for ci in range(c):
+                                if not torch.equal(got[:, :, ci], dec[ci]):
+                                    raise AssertionError(
+                                        f"K3 {kv} ctx={ctx} "
+                                        f"{dict(rc.tiles)} "
+                                        f"{dict(qc.tiles)}: query {ci} "
+                                        "differs from K2 on it alone")
+                            tq = _us(lambda: paged_attention_chunk(
+                                q, pool, table, q_pos, -1, scale=scale),
+                                flush)
+                        qtimes[(rc, qc)] = tq
+                        if qc == qts[0]:
+                            t["K3"] = tq
+                rtimes.append(t)
+            won, t_w, t_d = _tune_table(f"paged {kv} ctx={ctx}", rkey,
+                                        ranges, rtimes, ranges[0])
+            add("paged_attention", t_w, t_d)
+            _tune_table(f"K3 qt {kv} ctx={ctx} range "
+                        f"{won.tile('range')}", ckey, qts,
+                        [{"K3": qtimes[(won, qc)]} for qc in qts], qts[0])
+            del q, pool, table, q_pos
+    log("tune phase (winner vs default µs, summed over the shapes): "
+        + json.dumps({k: [round(w, 1), round(d, 1)]
+                      for k, (w, d) in gain.items()}))
+    return gain
+
+
+def _log_pretune():
+    """Log every session's pre-tuning (`Engine._pretune`): its seconds and
+    the winners it added, in this process."""
+    from repro_torch.api import engine
+    if getattr(engine.Engine._pretune, "logged", False):
+        return
+    inner = engine.Engine._pretune
+
+    def logged(self, batch_slots, *a, **kw):
+        n = len(self.tune_log)
+        inner(self, batch_slots, *a, **kw)
+        for e in self.tune_log[n:]:
+            log(f"pretune {self.cfg.name} ({self.cfg.n_layers} layers) at "
+                f"{batch_slots} slots: {e['seconds']:.2f} s, "
+                f"{e['new_keys']} new winners")
+    logged.logged = True
+    engine.Engine._pretune = logged
 
 
 # ---------------------------------------------------------------- K7, K8
@@ -3924,6 +4139,7 @@ def _mesh_one_rank(rank, layers):
     """A mesh of one rank over nccl: its collectives, and its serve against
     the plain session's on the same engine."""
     import torch
+    _log_pretune()
     from repro_torch import CompressionSpec
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.shard import comm
@@ -3951,6 +4167,7 @@ def _mesh_pair_rank(rank, layers):
     (counted, then again with the gathers timed), and on rank 0 the plain
     session's serve on the same engine to hold it against."""
     import torch
+    _log_pretune()
     from repro_torch import CompressionSpec, Request
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.shard import comm, partition
@@ -4127,6 +4344,7 @@ def main(argv=None) -> int:
         errs[name], times[name], model_times[name] = _timed(label, phase,
                                                             dev, flush)
     fc_errs, fc_times = _timed("K4/K5", fc_phase, dev, flush)
+    _timed("tune", tune_phase, dev, flush)
     _timed("mesh bands", mesh_band_phase, dev, flush)
     for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
         errs[name] = fc_errs[mode]
@@ -4143,6 +4361,7 @@ def main(argv=None) -> int:
     del flush
     _timed("ap emulator", ap_emulator_phase, dev)
     layers = args.layers or 32
+    _log_pretune()
     launches, by_rows, eng, paged1 = _timed("serve aida", serve_phase, dev,
                                             layers)
     slice_serves = [_timed("serve full cache", full_cache_phase, dev, eng,
@@ -4150,6 +4369,8 @@ def main(argv=None) -> int:
     del paged1
     _timed("serve traffic", traffic_phase, dev, eng)
     disagg, wide = _timed("serve disagg", disagg_phase, dev, eng)
+    from repro_torch.kernels import tune
+    log("tune snapshot after phase 9: " + json.dumps(tune.snapshot()))
     slice_serves.append(disagg)   # its wide K1 runs at its own columns
     by_rows["acsr_spmv_wide"][wide] = disagg["acsr_spmv_wide"]
     del eng
@@ -4212,6 +4433,7 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[name],
+               "tune_launches": tune.launches.get(name, 0),
                "max_abs_err": errs[name]}
         if name in by_rows:   # FC kernels: per layer, at the main path's rows
             row.update(_by_shape(times[name], by_rows[name]))

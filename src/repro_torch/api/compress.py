@@ -2,14 +2,18 @@
 ``params["layers"]`` becomes a stacked CompressedFC (prune -> share ->
 pack), with one slot depth across layers so a layer view of the stack is
 a plain index.  MoE expert stacks ([L, E, d, f]) stay uncompressed, as in
-the JAX package; they are kept as their bf16 serving copy."""
+the JAX package; they are kept as their bf16 serving copy.  Under
+``REPRO_TUNE_BLOCK_ROWS=1`` each sparse leaf's ``block_rows`` is searched
+on its layer-0 weights (`kernels.tune.choose_block_rows`)."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.api import env
 from repro_torch.api.spec import CompressionSpec
+from repro_torch.core import acsr as acsr_mod
 from repro_torch.core import quant as q
 from repro_torch.core import sparse_fc as sfc
 from repro_torch.kernels import acsr_spmv as sp
@@ -94,9 +98,17 @@ def compress_params(params: Dict, spec: CompressionSpec = None, *,
         leaf_mode = spec.mode_for(pstr)
         if leaf_mode == "skip":
             return leaf
+        block_rows = spec.block_rows
+        if leaf_mode in ("acsr", "aida") and env.TUNE_BLOCK_ROWS:
+            # encode-time search: the row-block height whose acsr_spmv is
+            # fastest on this projection's pruned layer-0 weights
+            from repro_torch.kernels import tune
+            w0 = acsr_mod.prune_topk(leaf[0].T.float(), spec.density)
+            block_rows = tune.choose_block_rows(
+                w0, leaf_mode, spec.density, default=spec.block_rows)
         per = [sfc.compress(leaf[i].T, mode=leaf_mode,
                             density=spec.density, k=spec.k,
-                            block_rows=spec.block_rows,
+                            block_rows=block_rows,
                             kmeans_iters=spec.kmeans_iters, dtype=spec.dtype)
                for i in range(leaf.shape[0])]
         out = _stack_compressed(per)

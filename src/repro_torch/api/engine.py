@@ -19,6 +19,9 @@ checks: a pinned backend refuses modes it cannot run in ``compress`` and
 refuses to serve without batched decode.  ``estimate`` routes to a
 cycle-accounting backend (`ap-emulator` on the engine's device,
 `cycle-sim` on the host).
+On the card, ``session`` first autotunes the launch plans of every kernel
+the session will run (`kernels.tune`; ``REPRO_AUTOTUNE=0`` keeps today's
+plans), as the reference's ``Engine._pretune`` does.
 ``serve(..., disagg=True)`` splits serving into a prefill role and a
 decode role on the same device (`repro_torch.disagg`); ``resil=`` turns on
 the resilience layer (`repro_torch.resil`).  ``session(mesh=...)`` serves
@@ -28,6 +31,7 @@ per rank, each holding a band of every banded projection.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Union
 
 import torch
@@ -62,6 +66,8 @@ class Engine:
         self._seed = seed
         self.compression: Optional[CompressionSpec] = None
         self.stats: Optional[dict] = None
+        #: one entry a `_pretune` call: its seconds and new winners
+        self.tune_log: List[dict] = []
 
     @property
     def params(self):
@@ -113,6 +119,55 @@ class Engine:
                 self.params, spec, verbose=verbose)
         self.compression = spec
         return self
+
+    # ------------------------------------------------------------- serve
+    def _pretune(self, batch_slots: int, max_len: int, page_size: int,
+                 kv_dtype: Optional[str], kv_cache: Optional[str],
+                 plan, scheduler=None) -> None:
+        """Autotune the kernels a session at this batch width will launch,
+        on the card: compressed-FC geometries (a mesh rank's bands under
+        a plan, the ranks agreeing on each winner) and the paged-attention
+        range and chunk query tile.  Appends its seconds and new winners
+        to ``tune_log``."""
+        from repro_torch import sched as schd
+        from repro_torch.api import session as sess_mod
+        from repro_torch.kernels import tune
+        if not tune.tunable(self.device):
+            return
+        t0, n0 = time.perf_counter(), len(tune.snapshot())
+        tp = plan.tp if plan is not None else 1
+        resolved_kv = sess_mod.resolve_kv_cache(kv_cache, self.cfg)
+        chunk = schd.SchedConfig.coerce(scheduler).chunk
+        chunked = chunk > 1 and resolved_kv == "paged" \
+            and self.cfg.family != "rwkv6" \
+            and schd.supports_chunked_prefill(self.cfg)
+        reduce = None
+        if tp > 1:                     # the ranks agree on every winner
+            from repro_torch.shard import comm
+            reduce = comm.max_over(plan.group, self.device)
+        if self.backend.name == "cuda" and self.compression is not None:
+            if tune.enabled():
+                if tp > 1:
+                    # the ranks launch their bands under the whole's key
+                    from repro_torch import shard
+                    shard.tune_local_views(self.params, plan, batch_slots,
+                                           chunk if chunked else 1)
+                else:
+                    tune.tune_params(self.params, batch_slots,
+                                     chunk if chunked else 1)
+        # a mesh's paged kernels take the whole geometry's choice
+        # (`split_hkv`), so the same global tune applies to its head bands
+        if resolved_kv == "paged" and self.cfg.family != "rwkv6" \
+                and tune.enabled():
+            kvd = kv_dtype or sess_mod.KV_DTYPE_DEFAULT
+            tune.tune_paged(self.cfg, batch_slots, max_len, page_size, kvd,
+                            self.device, reduce=reduce)
+            if chunk > 1 and schd.supports_chunked_prefill(self.cfg):
+                tune.tune_paged_chunk(self.cfg, batch_slots, max_len,
+                                      page_size, chunk, kvd, self.device,
+                                      reduce=reduce)
+        self.tune_log.append({"seconds": time.perf_counter() - t0,
+                              "new_keys": len(tune.snapshot()) - n0})
 
     def session(self, batch_slots: int = 4, max_len: int = 256,
                 seed: int = 0, kv_cache: Optional[str] = None,
@@ -170,7 +225,13 @@ class Engine:
                 raise ValueError(
                     "disaggregated serving migrates KV pages; it cannot "
                     f"run on kv_cache={kv_cache!r}")
-            from repro_torch.disagg import DisaggSession
+            from repro_torch.disagg import DisaggConfig, DisaggSession
+            d = DisaggConfig.coerce(disagg)
+            self._pretune(d.prefill_slots, max_len, page_size, kv_dtype,
+                          "paged", None, scheduler=scheduler)
+            if d.decode_slots != d.prefill_slots:
+                self._pretune(d.decode_slots, max_len, page_size, kv_dtype,
+                              "paged", None, scheduler=scheduler)
             return DisaggSession(
                 self.cfg, self.params, disagg=disagg, device=self.device,
                 max_len=max_len, seed=seed, page_size=page_size,
@@ -180,6 +241,8 @@ class Engine:
         if mesh is not None:
             from repro_torch import shard
             plan = shard.make_plan(mesh, self.cfg)
+        self._pretune(batch_slots, max_len, page_size, kv_dtype, kv_cache,
+                      plan, scheduler=scheduler)
         return Session(self.cfg, self.params, batch_slots=batch_slots,
                        max_len=max_len, device=self.device, seed=seed,
                        kv_cache=kv_cache, page_size=page_size,

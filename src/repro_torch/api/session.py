@@ -81,19 +81,23 @@ from repro_torch import kvstore as kvs
 from repro_torch import obs as obs_mod
 from repro_torch import resil as rsl
 from repro_torch import sched as schd
+from repro_torch.api import env
 from repro_torch.api.registry import get_backend
 from repro_torch.api.spec import Request, Result
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import model as M
 
-KV_CACHE_DEFAULT = "auto"
-KV_DTYPE_DEFAULT = "bf16"
+# the REPRO_KV_CACHE / REPRO_KV_DTYPE knobs, resolved once at import
+# (`api.env`); a session's kv_cache= / kv_dtype= arguments win
+KV_CACHE_DEFAULT = env.KV_CACHE
+KV_DTYPE_DEFAULT = env.KV_DTYPE
 ON_INCOMPLETE = ("raise", "warn", "ignore")
 
 
 def resolve_kv_cache(kv_cache: Optional[str], cfg: ArchConfig) -> str:
-    """None -> "auto"; "auto" -> paged wherever there is attention state."""
+    """None -> the env default; "auto" -> paged wherever there is
+    attention state."""
     kv = KV_CACHE_DEFAULT if kv_cache is None else kv_cache
     if kv == "auto":
         kv = "full" if cfg.family == "rwkv6" else "paged"

@@ -14,15 +14,54 @@ ASSIGN_CHUNK = 1 << 22
 def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest-centroid code of every element (the first centroid wins a
     tie); uint8 [x.shape].  Runs in chunks of ``ASSIGN_CHUNK`` elements,
-    which changes nothing in the result."""
+    which changes nothing in the result.  Where the centroids rise
+    strictly by gaps far above f32 rounding (:func:`_bracketing`), each
+    element is held against the two centroids that bracket it only: any
+    other is farther by a whole gap, more than the rounding of either
+    distance, so the code is the argmin's, bit for bit, from a few
+    elementwise passes instead of a distance to every centroid."""
     flat = x.reshape(-1).float()
     cents = centroids.float()
     codes = torch.empty(flat.shape, dtype=torch.uint8, device=flat.device)
+    bracket = _bracketing(flat, cents)
     for i in range(0, flat.numel(), ASSIGN_CHUNK):
         part = flat[i:i + ASSIGN_CHUNK]
-        codes[i:i + ASSIGN_CHUNK] = (part[:, None] - cents[None, :]).abs() \
-            .argmin(dim=1).to(torch.uint8)
+        if bracket:
+            pos = torch.searchsorted(cents, part)   # first c >= x
+            lo = torch.clamp(pos - 1, min=0)
+            hi = torch.clamp(pos, max=cents.numel() - 1)
+            near = (part - cents[lo]).abs() <= (part - cents[hi]).abs()
+            codes[i:i + ASSIGN_CHUNK] = torch.where(near, lo, hi).to(
+                torch.uint8)
+        else:
+            codes[i:i + ASSIGN_CHUNK] = (part[:, None] - cents[None, :]) \
+                .abs().argmin(dim=1).to(torch.uint8)
     return codes.reshape(x.shape)
+
+
+def _bracketing(flat: torch.Tensor, cents: torch.Tensor) -> bool:
+    """Whether every gap between consecutive centroids exceeds 2**-16 of
+    M, the largest magnitude among the elements and centroids.  An f32
+    distance |x - c| <= 2M is off by at most M * 2**-23, so a centroid
+    farther than another by a gap of more than M * 2**-22 stays farther
+    in f32: the argmin lies between the two centroids around x."""
+    if cents.numel() < 2 or flat.numel() == 0:
+        return False
+    m = torch.maximum(flat.abs().max(), cents.abs().max())
+    return bool(((cents[1:] - cents[:-1]) > m * 2.0 ** -16).all())
+
+
+def counts(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """int64 [k]: how many of ``codes`` (each < k) hold each value — what
+    ``torch.bincount(codes, minlength=k)`` gives, as sums of compares in
+    chunks of ``ASSIGN_CHUNK``: exact, and on the card far faster than
+    bincount's atomic adds into a few bins."""
+    flat = codes.reshape(-1)
+    ar = torch.arange(k, dtype=flat.dtype, device=flat.device)
+    out = torch.zeros(k, dtype=torch.int64, device=flat.device)
+    for i in range(0, flat.numel(), ASSIGN_CHUNK):
+        out += (flat[i:i + ASSIGN_CHUNK, None] == ar).sum(dim=0)
+    return out
 
 
 def kmeans_1d(x: torch.Tensor, k: int = 16, iters: int = 25) -> torch.Tensor:
@@ -42,7 +81,7 @@ def kmeans_1d(x: torch.Tensor, k: int = 16, iters: int = 25) -> torch.Tensor:
     cents = lo + (hi - lo) * (torch.arange(k, dtype=torch.float32,
                                            device=xs.device) + 0.5) / k
     for _ in range(iters):
-        cnts = torch.bincount(assign(xs, cents).long(), minlength=k)
+        cnts = counts(assign(xs, cents), k)
         ends = torch.cumsum(cnts, 0)
         sums = prefix[ends] - prefix[ends - cnts]
         cents = torch.where(cnts > 0,

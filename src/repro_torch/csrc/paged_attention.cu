@@ -29,9 +29,10 @@
 // Design:
 //  * The split plan (`split_plan` in kvstore/paged_attention.py): a row
 //    (one query) visits the keys of its pages 0 .. min(npp - 1,
-//    max(q_pos, 0) / ps), its live keys, cut into ranges of RANGE keys from
+//    max(q_pos, 0) / ps), its live keys, cut into ranges of RK keys from
 //    key 0; a range into stages of KB keys, a stage into KG groups of 16.
-//    Nothing of it depends on B, C, the table width or the card, and every
+//    RK is the attention geometry's tuned range (kernels/tune.py; RANGE
+//    untuned).  Nothing of it depends on B, C or the table width, and every
 //    row runs the same arithmetic: a query's bits are its own, decoded
 //    alone, among other rows, or as any row of a chunk (K2 is K3 at C = 1).
 //  * One block per (sequence, kv head, query tile, range).  Blocks past
@@ -64,7 +65,16 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int RANGE = 256;    // keys a range of the split plan
+// RK, the keys of a range of the split plan, is a template parameter:
+// 128, 256 or 512 (the tuner's candidates), so every layout stays static.
+// RANGE is the untuned plan's.  Each build instantiates one, PA_RANGE
+// (nvcc -DPA_RANGE=..., a library each, built side by side).
+constexpr int RANGE = 256;
+#ifndef PA_RANGE
+#define PA_RANGE RANGE
+#endif
+static_assert(PA_RANGE == 128 || PA_RANGE == 256 || PA_RANGE == 512,
+              "a range is 128, 256 or 512 keys");
 constexpr int KB = 64;        // keys a stage
 constexpr int KG = 4;         // key groups of 16 a stage: warps an m-tile
 constexpr int MAX_ROWS = 32;  // query rows a block (two m-tiles)
@@ -127,7 +137,7 @@ __device__ __forceinline__ int div_ps(int x, int ps, int ps_log2) {
 }
 
 // grid (B * Hkv * C / qt, nrange), block 32 * KG * ceil(G * qt / 16).
-template <typename PT, int DH>
+template <typename PT, int DH, int RK>
 __global__ void __launch_bounds__(32 * NW_MAX, DH <= 128 ? 2 : 1)
     paged_attn(const void* __restrict__ qv, int q_f32,
                const PT* __restrict__ kp, const PT* __restrict__ vp,
@@ -150,8 +160,8 @@ __global__ void __launch_bounds__(32 * NW_MAX, DH <= 128 ? 2 : 1)
   // 16-byte pieces of q a thread: rows * DH / 8 <= 2 * DH * (nw / KG)
   constexpr int QP = (2 * DH + 32 * KG - 1) / (32 * KG);
   const int* pos_t = q_pos + (size_t)b * c + qi * qt;
-  const int rg = blockIdx.y, r0 = rg * RANGE, p0 = r0 / ps;
-  const int npg = (RANGE - 1) / ps + 2;  // most pages a range touches
+  const int rg = blockIdx.y, r0 = rg * RK, p0 = r0 / ps;
+  const int npg = (RK - 1) / ps + 2;  // most pages a range touches
 
   // Read what the block needs and no other read waits on at once: the
   // range's table entries, q (QP 16-byte pieces a thread at most) and the
@@ -181,9 +191,9 @@ __global__ void __launch_bounds__(32 * NW_MAX, DH <= 128 ? 2 : 1)
   int tile_end = 0;
   for (int i = 0; i < qt; ++i)
     tile_end = max(tile_end, live_keys(pos_t[i], ps, npp));
-  const int ntile = (tile_end + RANGE - 1) / RANGE;
+  const int ntile = (tile_end + RK - 1) / RK;
   if (rg >= ntile) return;
-  const int r1 = min(r0 + RANGE, tile_end);
+  const int r1 = min(r0 + RK, tile_end);
   const int npr = div_ps(r1 - 1, ps, ps_log2) - p0 + 1;
   const Layout L = layout<PT, DH>(nw, q_f32, npg);
   PT* ring = reinterpret_cast<PT*>(smem);
@@ -451,7 +461,7 @@ __global__ void __launch_bounds__(32 * NW_MAX, DH <= 128 ? 2 : 1)
 #pragma unroll
     for (int k = 0; k < KG; ++k)
       as += gw[r * KG + k] * macc[(size_t)(w0 + 16 * k) * DH + d];
-    if (re <= RANGE) {
+    if (re <= RK) {
       out[(size_t)rowg_s[r] * DH + d] = as / fmaxf(gl[r], 1e-30f);
     } else {
       const size_t sl = (size_t)rowg_s[r] * nrange + rg;
@@ -481,7 +491,7 @@ __global__ void __launch_bounds__(32 * NW_MAX, DH <= 128 ? 2 : 1)
   float* rmx = cl + MAX_ROWS * KC;             // [MAX_ROWS]
   float* rls = rmx + MAX_ROWS;                 // [MAX_ROWS]
   auto ranges = [&](int r) {  // a longer row's ranges, else 0
-    return rend_s[r] > RANGE ? (rend_s[r] + RANGE - 1) / RANGE : 0;
+    return rend_s[r] > RK ? (rend_s[r] + RK - 1) / RK : 0;
   };
   auto load_chunk = [&](int k0, bool with_l) {
     float vm[LPT], vl[LPT];
@@ -574,7 +584,7 @@ __global__ void __launch_bounds__(32 * NW_MAX, DH <= 128 ? 2 : 1)
   if (tid == 0) cnt[blockIdx.x] = 0;  // ready for the next launch
 }
 
-template <typename PT, int DH>
+template <typename PT, int DH, int RK>
 int launch(const void* q, int q_f32, const void* kp, const void* vp,
            const float* ks, const float* vs, const int* table,
            const int* q_pos, int batch, int h, int hkv, int c, int qt,
@@ -583,8 +593,8 @@ int launch(const void* q, int q_f32, const void* kp, const void* vp,
            cudaStream_t stream) {
   const int G = h / hkv, nw = KG * ((G * qt + 15) / 16);
   const size_t smem =
-      layout<PT, DH>(nw, q_f32, (RANGE - 1) / ps + 2).total;
-  auto kern = paged_attn<PT, DH>;
+      layout<PT, DH>(nw, q_f32, (RK - 1) / ps + 2).total;
+  auto kern = paged_attn<PT, DH, RK>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -599,7 +609,7 @@ int launch(const void* q, int q_f32, const void* kp, const void* vp,
   return (int)cudaGetLastError();
 }
 
-template <typename PT>
+template <typename PT, int RK>
 int by_head_dim(int dh, const void* q, int q_f32, const void* kp,
                 const void* vp, const float* ks, const float* vs,
                 const int* table, const int* q_pos, int batch, int h,
@@ -608,9 +618,9 @@ int by_head_dim(int dh, const void* q, int q_f32, const void* kp,
                 float* part, int* cnt, cudaStream_t stream) {
 #define PA_CALL(DH)                                                        \
   if (dh == DH)                                                            \
-  return launch<PT, DH>(q, q_f32, kp, vp, ks, vs, table, q_pos, batch, h,  \
-                        hkv, c, qt, ps, npp, nrange, window, scale, cap,   \
-                        has_cap, out, part, cnt, stream)
+  return launch<PT, DH, RK>(q, q_f32, kp, vp, ks, vs, table, q_pos, batch, \
+                            h, hkv, c, qt, ps, npp, nrange, window, scale, \
+                            cap, has_cap, out, part, cnt, stream)
   PA_CALL(16);
   PA_CALL(32);
   PA_CALL(48);
@@ -635,7 +645,8 @@ int by_head_dim(int dh, const void* q, int q_f32, const void* kp,
 
 // q_kind: 0 = bf16, 1 = f32.  page_kind: 0 = bf16, 1 = int8 (ks/vs given).
 // qt must divide c, with (h / hkv) * qt <= 32; dh a multiple of 16 up to
-// 256; nrange = ceil(npp * ps / 256), the most ranges a row can have.
+// 256; range_keys (the keys of a range) this library's PA_RANGE; nrange
+// = ceil(npp * ps / range_keys), the most ranges a row can have.
 // part: scratch of batch * h * c * nrange * (dh + 2) floats (unused if
 // nrange == 1); cnt: batch * hkv * (c / qt) int32 counters, 0 before the
 // launch and 0 after it (launches that share them run one at a time, as
@@ -645,11 +656,13 @@ extern "C" int paged_attention_chunk_launch(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* table, const void* q_pos, void* part,
     void* cnt, void* out, int q_kind, int page_kind, int batch, int h,
-    int hkv, int dh, int c, int qt, int ps, int npp, int nrange, int window,
-    float scale, float cap, int has_cap, void* stream) {
+    int hkv, int dh, int c, int qt, int ps, int npp, int range_keys,
+    int nrange, int window, float scale, float cap, int has_cap,
+    void* stream) {
   if (hkv <= 0 || h % hkv != 0 || c <= 0 || qt <= 0 || c % qt != 0 ||
       h / hkv * qt > MAX_ROWS || ps <= 0 || npp <= 0 ||
-      nrange != (npp * ps + RANGE - 1) / RANGE ||
+      range_keys != PA_RANGE ||
+      nrange != (npp * ps + range_keys - 1) / range_keys ||
       (q_kind != 0 && q_kind != 1) ||
       (page_kind == 1 && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -661,12 +674,12 @@ extern "C" int paged_attention_chunk_launch(
   int* ct = static_cast<int*>(cnt);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_KIND(PT)                                                         \
-  return by_head_dim<PT>(dh, q, q_kind, kp, vp, ksf, vsf, tb, qp, batch, h, \
-                         hkv, c, qt, ps, npp, nrange, window, scale, cap,   \
-                         has_cap, o, pt, ct, s)
-  if (page_kind == 0) PA_KIND(__nv_bfloat16);
-  if (page_kind == 1) PA_KIND(int8_t);
+#define PA_KIND(PT, R)                                                      \
+  return by_head_dim<PT, R>(dh, q, q_kind, kp, vp, ksf, vsf, tb, qp, batch, \
+                            h, hkv, c, qt, ps, npp, nrange, window, scale,  \
+                            cap, has_cap, o, pt, ct, s)
+  if (page_kind == 0) PA_KIND(__nv_bfloat16, PA_RANGE);
+  if (page_kind == 1) PA_KIND(int8_t, PA_RANGE);
 #undef PA_KIND
   return (int)cudaErrorInvalidValue;
 }

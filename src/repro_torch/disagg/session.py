@@ -30,9 +30,9 @@ the shard layer (ROADMAP queue 1 item 10).
 
 Greedy tokens equal the co-located paged session's, as long as every
 row's arithmetic is independent of its batch: on the CPU they are equal;
-on the card the lm_head's f32 product and ``rms_norm``'s mean sum in
-another order at another row count (the prefill role batches its own
-slots' chunks), so a near-tie may flip there.  Sampling
+on the card the lm_head's f32 product sums in another order at another
+row count (the prefill role batches its own slots' chunks), so a near-tie
+may flip there.  Sampling
 (``temperature > 0``): each role holds its own CPU ``torch.Generator``
 seeded by ``seed``; the prefill role's draws the first token of each
 sampled request, the decode role's every later one, so a run repeats

@@ -35,6 +35,7 @@ import torch
 from repro_torch.core.codebook import assign
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels import tune
 
 _VALUE_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _COL_KINDS = {torch.int16: 0, torch.int32: 1}
@@ -160,6 +161,17 @@ def block_encode_coded(dense: torch.Tensor, centroids: torch.Tensor,
 
 
 # --------------------------------------------------------------- kernel
+#: blocks of br * sy threads a split plan aims at per SM
+BLOCKS_PER_SM = 2
+
+
+def plan_of(rmax: int, sy: int, nsplit: int) -> Tuple[int, int, int]:
+    """(sy, nsplit, per_split) of ``nsplit`` equal slot ranges (the last
+    may be shorter, none empty) each cut into ``sy`` interleaved parts."""
+    per = max(1, cdiv(rmax, max(1, nsplit)))
+    return sy, max(1, cdiv(rmax, per)), per
+
+
 @functools.lru_cache(maxsize=None)
 def split_plan(nb: int, rmax: int, br: int, sms: int) -> Tuple[int, int, int]:
     """(sy, nsplit, per_split): the one split of the slot axis that both
@@ -168,11 +180,11 @@ def split_plan(nb: int, rmax: int, br: int, sms: int) -> Tuple[int, int, int]:
     in range order), each cut into sy interleaved parts (threads of a row,
     added in part order).  Ranges are added until the card has ~2 blocks
     of br * sy threads per SM (few row blocks otherwise leave most SMs
-    idle), keeping >= 4 slots per thread."""
+    idle), keeping >= 4 slots per thread.  This is the untuned plan:
+    :func:`launch_plan` takes a tuned geometry's winner instead."""
     sy = max(1, 512 // br)
-    nsplit = max(1, min(cdiv(2 * sms, nb), cdiv(rmax, 4 * sy)))
-    per = max(1, cdiv(rmax, nsplit))
-    return sy, max(1, cdiv(rmax, per)), per
+    return plan_of(rmax, sy, max(1, min(cdiv(BLOCKS_PER_SM * sms, nb),
+                                        cdiv(rmax, 4 * sy))))
 
 
 def _check(b: BlockedACSR, x2d: torch.Tensor, bias: Optional[torch.Tensor],
@@ -236,15 +248,22 @@ def _ptrs(b: BlockedACSR, x2d, bias, out, part, with_off: bool):
 
 def launch_plan(b: BlockedACSR, sms: int,
                 split_nb: Optional[int] = None) -> Tuple[int, int, int]:
-    """The split a launch runs: the container's own, or that of the whole
-    matrix of ``split_nb`` row blocks a row band was cut from (a band
+    """The split a launch runs: that of the container's geometry, or of the
+    whole matrix of ``split_nb`` row blocks a row band was cut from (a band
     keeps the whole's rmax, so its rows sum in the whole's order, bit for
-    bit)."""
+    bit).  A geometry the tuner has a winner for (`kernels.tune`, keyed
+    without x's width, so both variants take it) runs the winner's
+    (sy, nsplit), any other :func:`split_plan`."""
     nb, rmax, br = b.values.shape
     if split_nb is not None and split_nb < nb:
         raise ValueError(f"split_nb {split_nb} is below the band's {nb} "
                          "row blocks")
-    return split_plan(split_nb or nb, rmax, br, sms)
+    whole = split_nb or nb
+    choice = tune.lookup(tune.acsr_key(whole, rmax, br, b.shape[1],
+                                       b.centroids is not None, sms))
+    if choice is not None and choice.tile("sy") is not None:
+        return plan_of(rmax, choice.tile("sy"), choice.tile("nsplit"))
+    return split_plan(whole, rmax, br, sms)
 
 
 def spmv_gather(b: BlockedACSR, x2d: torch.Tensor,

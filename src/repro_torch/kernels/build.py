@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``.  Libraries land in
+with a plain C interface, loaded with ``ctypes`` (the paged-attention
+source once for each of its ranges, ``VARIANTS``).  Libraries land in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of
 the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds and an unchanged one loads at once.  Nothing is built at
@@ -24,8 +25,16 @@ from typing import Dict, Tuple
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
-SOURCES = ("acsr_spmv", "paged_attention", "int8_matmul", "lut_matmul",
-           "flash_attention", "linear_scan", "lut_product")
+#: the paged-attention kernel's keys a range (its template argument): one
+#: library each, so their builds run side by side; "paged_attention" is
+#: the untuned 256, the others are its VARIANTS
+PAGED_RANGES = (128, 256, 512)
+#: libraries built from another source with macros of their own: name ->
+#: (source, extra nvcc flags)
+VARIANTS = {f"paged_attention_r{r}": ("paged_attention", (f"-DPA_RANGE={r}",))
+            for r in PAGED_RANGES if r != 256}
+SOURCES = ("acsr_spmv", "paged_attention", *VARIANTS, "int8_matmul",
+           "lut_matmul", "flash_attention", "linear_scan", "lut_product")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,11 +53,26 @@ def _nvcc() -> str:
     return found
 
 
+def paged_library(range_keys: int) -> str:
+    """The library of the paged-attention kernel at ``range_keys`` keys a
+    range."""
+    name = f"paged_attention_r{range_keys}"
+    return name if name in VARIANTS else "paged_attention"
+
+
+def _source(name: str) -> Tuple[pathlib.Path, Tuple[str, ...]]:
+    """The .cu a library is built from, and its extra flags."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", extra
+
+
 def _lib_path(name: str) -> pathlib.Path:
     # the shared headers are part of every source's key
+    cu, extra = _source(name)
     src = b"".join(p.read_bytes() for p in
-                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                   [cu, *sorted(CSRC.glob("*.cuh"))])
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra).encode()) \
+        .hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
@@ -65,7 +89,8 @@ def build_all() -> float:
     for name, path in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cu, extra = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", tmp, str(cu)]
         procs.append((name, path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -73,7 +98,7 @@ def build_all() -> float:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+            failed.append(f"{name}:\n{out.decode(errors='replace')}")
         else:
             os.replace(tmp, path)      # atomic: a reader never sees half
     if failed:
@@ -82,7 +107,8 @@ def build_all() -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` (``csrc/<name>.cu``, or a VARIANTS
+    entry), built on first use."""
     if name not in _LIBS:
         path = _lib_path(name)
         if not path.exists():

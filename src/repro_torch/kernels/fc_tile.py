@@ -14,6 +14,8 @@ from repro_torch.kernels import ref
 BN, BK = 64, 128           # channels of a group, k of a stage (.cuh)
 #: blocks a split plan aims at per SM (at most; the grid is one wave)
 BLOCKS_PER_SM = 2
+#: the compression mode of each library, as the tuner keys it
+_MODES = {"int8_matmul": "int8", "lut_matmul": "codebook4"}
 
 
 def cdiv(a: int, b: int) -> int:
@@ -25,30 +27,52 @@ def tile_rows(m: int) -> int:
     return 8 if m <= 8 else 32
 
 
+def plan_of(k: int, ksplit: int) -> Tuple[Tuple[int, int], ...]:
+    """The K ranges of a split into at most ``ksplit`` parts: whole stages
+    of BK from k 0, equal but the last, none empty."""
+    steps = cdiv(k, BK)
+    per = cdiv(steps, max(1, min(steps, ksplit))) * BK
+    return tuple((k0, min(k, k0 + per)) for k0 in range(0, k, per))
+
+
 def split_plan(n: int, k: int, sms: int) -> Tuple[Tuple[int, int], ...]:
     """The K ranges ``[k0, k1)`` a block of BN output channels sums on its
     own, in the order the kernel adds their partials: whole stages of BK
     from k 0, equal but the last, none empty, as many as keep
     ``ceil(n / BN)`` channel tiles within BLOCKS_PER_SM blocks an SM.  No
     row count enters, so a row's sum order, and bits, are the same alone
-    or among others."""
+    or among others.  This is the untuned plan: :func:`launch_plan` takes
+    a tuned geometry's winner instead."""
+    return aimed_plan(n, k, sms, BLOCKS_PER_SM)
+
+
+def aimed_plan(n: int, k: int, sms: int,
+               blocks_per_sm: int) -> Tuple[Tuple[int, int], ...]:
+    """:func:`split_plan` aimed at ``blocks_per_sm`` blocks an SM (the
+    tuner's candidates)."""
     if n < 1 or k < 1 or sms < 1:
         raise ValueError(f"split_plan: n={n}, k={k}, sms={sms}")
-    steps = cdiv(k, BK)
-    ksplit = max(1, min(steps, BLOCKS_PER_SM * sms // cdiv(n, BN)))
-    per = cdiv(steps, ksplit) * BK
-    return tuple((k0, min(k, k0 + per)) for k0 in range(0, k, per))
+    return plan_of(k, max(1, blocks_per_sm * sms // cdiv(n, BN)))
 
 
-def launch_plan(n: int, k: int, sms: int,
-                split_n: Optional[int] = None) -> Tuple[Tuple[int, int], ...]:
+def launch_plan(n: int, k: int, sms: int, split_n: Optional[int] = None,
+                mode: Optional[str] = None) -> Tuple[Tuple[int, int], ...]:
     """The K ranges a launch of ``n`` channels runs: its own plan, or on a
     band of a larger matrix that of the whole's ``split_n`` channels, so
-    the band's rows sum in the whole's order, bit for bit."""
+    the band's rows sum in the whole's order, bit for bit.  With ``mode``
+    ("int8" / "codebook4"), a geometry the tuner has a winner for
+    (`kernels.tune`, keyed without the row count) runs the winner's
+    ksplit, any other :func:`split_plan`."""
     if split_n is not None and split_n < n:
         raise ValueError(f"split_n {split_n} is below the band's {n} "
                          "channels")
-    return split_plan(split_n or n, k, sms)
+    whole = split_n or n
+    if mode is not None:
+        from repro_torch.kernels import tune
+        choice = tune.lookup(tune.fc_key(mode, whole, k, sms))
+        if choice is not None and choice.tile("ksplit") is not None:
+            return plan_of(k, choice.tile("ksplit"))
+    return split_plan(whole, k, sms)
 
 
 def launch(lib: str, x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
@@ -73,7 +97,8 @@ def launch(lib: str, x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{lib} operands must be contiguous and on one "
                              "device")
-    plan = launch_plan(n, k, build.sm_count(dev), split_n)
+    plan = launch_plan(n, k, build.sm_count(dev), split_n,
+                       _MODES[lib])
     ksplit, per = len(plan), cdiv(plan[0][1], BK) * BK
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     part = torch.empty((ksplit * m * n if ksplit > 1 else 1,),

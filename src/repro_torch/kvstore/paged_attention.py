@@ -27,8 +27,12 @@ _PAGE_KINDS = {torch.bfloat16: 0, torch.int8: 1}
 MAX_ROWS = 32                  # query rows of one block: G * qt
 #: head dims the kernel takes: whole m16n8k16 depth steps, up to 256
 HEAD_DIMS = tuple(range(16, 257, 16))
-#: keys of one range of the split plan (``RANGE`` in the CUDA source)
+#: keys of one range of the untuned split plan (the CUDA source's
+#: ``RANGE`` template parameter)
 RANGE_KEYS = 256
+#: the ranges the kernel is built for (a library each), today's first
+RANGES = (RANGE_KEYS,) + tuple(r for r in build.PAGED_RANGES
+                               if r != RANGE_KEYS)
 
 
 def query_tile(chunk: int, group: int) -> int:
@@ -47,10 +51,40 @@ def split_plan(n_pages: int, page_size: int) -> Tuple[Tuple[int, int], ...]:
     at once; a longer row's ranges are merged in this order).  The plan is
     the row's alone: no batch, chunk, table width or SM count enters it,
     so a query gets the same bits decoded alone, among other rows or in a
-    chunk."""
+    chunk.  This is the untuned plan; a geometry the tuner has a winner
+    for cuts its rows by :func:`ranges_of` at the winner's range."""
+    return ranges_of(n_pages, page_size, RANGE_KEYS)
+
+
+def ranges_of(n_pages: int, page_size: int,
+              range_keys: int) -> Tuple[Tuple[int, int], ...]:
+    """:func:`split_plan` at ``range_keys`` keys a range."""
     n_keys = n_pages * page_size
-    return tuple((k0, min(k0 + RANGE_KEYS, n_keys))
-                 for k0 in range(0, n_keys, RANGE_KEYS))
+    return tuple((k0, min(k0 + range_keys, n_keys))
+                 for k0 in range(0, n_keys, range_keys))
+
+
+def launch_plan(h: int, hkv: int, dh: int, c: int, page_size: int,
+                quantized: bool, sms: int,
+                split_hkv: Optional[int] = None) -> Tuple[int, int]:
+    """(range_keys, qt) a launch runs: the tuned range of the attention
+    geometry (one key for K2 and K3, with no batch, chunk or table width,
+    so a query's split is its own) and K3's tuned query tile at this
+    chunk width, else RANGE_KEYS and :func:`query_tile`.  ``split_hkv``:
+    on a band of kv heads, the whole's kv-head count, whose choice the
+    band takes (so its queries get the whole launch's bits)."""
+    from repro_torch.kernels import tune
+    group = h // hkv
+    whole = split_hkv or hkv
+    rng = tune.lookup(tune.paged_key(whole, group, dh, page_size, quantized,
+                                     sms))
+    rng = RANGE_KEYS if rng is None else rng.tile("range", RANGE_KEYS)
+    qt = query_tile(c, group)
+    if c > 1:
+        got = tune.lookup(tune.paged_chunk_key(whole, group, dh, page_size,
+                                               c, quantized, sms))
+        qt = qt if got is None else got.tile("qt", qt)
+    return rng, qt
 
 
 def _check(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
@@ -98,24 +132,27 @@ def _check(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
 
 def _launch(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
             q_pos: torch.Tensor, window: int, scale: float,
-            cap: Optional[float]) -> torch.Tensor:
+            cap: Optional[float],
+            split_hkv: Optional[int] = None) -> torch.Tensor:
     """q [B, H, C, Dh], q_pos [B, C] -> [B, H, C, Dh] f32 through the
     kernel's C launcher (decode is its C = 1 case)."""
     _check(q, pool, table, q_pos)
-    fn = build.library("paged_attention").paged_attention_chunk_launch
-    if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 10 + [ctypes.c_int] * 12 + \
-            [ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
     b, h, c, dh = q.shape
     _, hkv, ps, _ = pool.k_pages.shape
     npp = table.shape[1]
     dev = q.device
-    qt = query_tile(c, h // hkv)
+    rng, qt = launch_plan(h, hkv, dh, c, ps, pool.quantized,
+                          build.sm_count(dev), split_hkv)
+    fn = build.library(build.paged_library(rng)) \
+        .paged_attention_chunk_launch
+    if fn.argtypes is None:
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ptr] * 10 + [ctypes.c_int] * 13 + \
+            [ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
     # the grid covers the most ranges a row of this table can have; blocks
     # past a tile's own last range exit at once
-    nrange = len(split_plan(npp, ps))
+    nrange = len(ranges_of(npp, ps, rng))
     tiles = b * hkv * (c // qt)
     out = torch.empty((b, h, c, dh), dtype=torch.float32, device=dev)
     part = torch.empty((b * h * c * nrange * (dh + 2) if nrange > 1 else 1,),
@@ -130,7 +167,7 @@ def _launch(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
                 table.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
                 cnt.data_ptr(), out.data_ptr(), _Q_KINDS[q.dtype],
                 _PAGE_KINDS[pool.k_pages.dtype], b, h, hkv, dh, c, qt, ps,
-                npp, nrange, int(window), float(scale),
+                npp, rng, nrange, int(window), float(scale),
                 float(cap) if cap is not None else 0.0,
                 int(cap is not None), stream)
     build.check(status, "paged_attention_chunk_launch")
@@ -140,10 +177,11 @@ def _launch(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
 def paged_attention(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
                     cur_pos: torch.Tensor, window: int, *,
                     scale: Optional[float] = None,
-                    cap: Optional[float] = None) -> torch.Tensor:
+                    cap: Optional[float] = None,
+                    split_hkv: Optional[int] = None) -> torch.Tensor:
     """q [B, H, Dh] against the paged pool -> [B, H, Dh] f32.  A CUDA
     tensor launches the kernel at C = 1 (or raises); a CPU tensor takes the
-    plain version."""
+    plain version.  ``split_hkv``: see :func:`launch_plan`."""
     dh = q.shape[-1]
     scale = (dh ** -0.5) if scale is None else scale
     window = int(window)
@@ -152,7 +190,7 @@ def paged_attention(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
                                        pool.k_scale, pool.v_scale, table,
                                        cur_pos, window, scale, cap)
     out = _launch(q.contiguous()[:, :, None], pool, table,
-                  cur_pos.reshape(-1, 1), window, scale, cap)
+                  cur_pos.reshape(-1, 1), window, scale, cap, split_hkv)
     paged_attention.launches += 1
     return out[:, :, 0]
 
@@ -160,11 +198,13 @@ def paged_attention(q: torch.Tensor, pool: PagedKV, table: torch.Tensor,
 def paged_attention_chunk(q: torch.Tensor, pool: PagedKV,
                           table: torch.Tensor, q_pos: torch.Tensor,
                           window: int, *, scale: Optional[float] = None,
-                          cap: Optional[float] = None) -> torch.Tensor:
+                          cap: Optional[float] = None,
+                          split_hkv: Optional[int] = None) -> torch.Tensor:
     """q [B, H, C, Dh] at absolute positions ``q_pos`` [B, C] against the
     paged pool -> [B, H, C, Dh] f32; each query is masked at its own
     position.  A CUDA tensor launches the chunk kernel (or raises); a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.  ``split_hkv``: see
+    :func:`launch_plan`."""
     dh = q.shape[-1]
     scale = (dh ** -0.5) if scale is None else scale
     window = int(window)
@@ -174,7 +214,7 @@ def paged_attention_chunk(q: torch.Tensor, pool: PagedKV,
                                              table, q_pos, window, scale,
                                              cap)
     out = _launch(q.contiguous(), pool, table, q_pos.contiguous(), window,
-                  scale, cap)
+                  scale, cap, split_hkv)
     paged_attention_chunk.launches += 1
     return out
 

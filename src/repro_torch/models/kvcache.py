@@ -6,17 +6,24 @@ ring cache is O(window), not O(sequence).  Stored entries carry their
 absolute positions and masks are computed from positions, so RoPE applied
 at write time stays consistent (scores depend only on position deltas).
 
-Updates write the cache in place (as the paged pool's do) and scatter the
-token into its slot; the JAX package's other strategy (``select``, a
-one-hot rewrite of the whole cache) exists for sharded layouts the port
-does not have.  A stacked cache ([L, B, ...]) is indexed a layer at a time
-with :meth:`KVCache.layer`.
+Updates write the cache in place (as the paged pool's do), by one of the
+JAX package's two strategies: ``scatter`` (the default) writes the token
+into its slot, ``select`` rewrites the whole cache through a one-hot
+``torch.where``; both give the same cache bit for bit.  The default comes
+from ``REPRO_KV_UPDATE`` (`api.env`), resolved once at import.  A stacked
+cache ([L, B, ...]) is indexed a layer at a time with
+:meth:`KVCache.layer`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.api import env
+
+#: update strategy when ``update`` is given none (``REPRO_KV_UPDATE``)
+KV_UPDATE_DEFAULT = env.KV_UPDATE
 
 
 class KVCache(NamedTuple):
@@ -43,14 +50,28 @@ def init_cache(batch: int, n_kv: int, slots: int, d_head: int,
 
 
 def update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-           cur_pos: torch.Tensor, ring: bool = False) -> KVCache:
+           cur_pos: torch.Tensor, ring: bool = False,
+           strategy: Optional[str] = None) -> KVCache:
     """Insert one token's k / v ([B, Hkv, 1, Dh]) at absolute positions
     ``cur_pos`` [B], in place.  A full cache drops a write past its last
     slot, as the JAX package's scatter does (an idle session slot keeps
-    counting positions): its slot index is clamped and it writes back the
-    value already there, so no host sync decides which rows write."""
+    counting positions): under ``scatter`` its slot index is clamped and it
+    writes back the value already there, so no host sync decides which
+    rows write; under ``select`` no slot is hot.  ``strategy``: "select",
+    or anything else for scatter, as in the JAX package (None:
+    ``KV_UPDATE_DEFAULT``)."""
+    strategy = KV_UPDATE_DEFAULT if strategy is None else strategy
     slots = cache.k.shape[2]
     cur = cur_pos.long()
+    if strategy == "select":
+        slot = cur % slots if ring else cur
+        hot = torch.arange(slots, device=cur.device)[None] == slot[:, None]
+        for dst, new in ((cache.k, k_new), (cache.v, v_new)):
+            dst.copy_(torch.where(hot[:, None, :, None], new.to(dst.dtype),
+                                  dst))
+        cache.pos.copy_(torch.where(hot, cur_pos.to(torch.int32)[:, None],
+                                    cache.pos))
+        return cache
     slot = cur % slots if ring else torch.clamp(cur, max=slots - 1)
     bidx = torch.arange(cache.k.shape[0], device=cache.k.device)
     keep = None if ring else cur >= slots

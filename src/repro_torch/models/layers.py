@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.api import dispatch as _dispatch
+from repro_torch.api import env as _env
 from repro_torch.kernels.ref import apply_activation
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -35,6 +36,13 @@ def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.to(COMPUTE_DTYPE).to(torch.float32,
                                memory_format=torch.contiguous_format),
         w.to(COMPUTE_DTYPE).float())
+
+
+def _round_product(y: torch.Tensor) -> torch.Tensor:
+    """A raw projection's f32 product, rounded to bf16 (kept in f32)
+    under ``REPRO_BF16_PSUM=1``, as the JAX package's ``_matmul_out_dtype``
+    narrows it before the bias; unchanged otherwise."""
+    return y.to(COMPUTE_DTYPE).float() if _env.BF16_PSUM else y
 
 
 def dense(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
@@ -67,9 +75,10 @@ def dense(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
         return y.reshape(*lead, y.shape[-1]).to(COMPUTE_DTYPE)
     if band == "raw":             # this rank's columns, then everyone's
         from repro_torch.shard.apply import gather
-        y = gather(plan, _bf16_matmul(x, w.local), w.n_out)
+        y = gather(plan, _round_product(_bf16_matmul(x, w.local)),
+                   w.n_out)
     else:
-        y = _bf16_matmul(x, w)
+        y = _round_product(_bf16_matmul(x, w))
     if bias is not None:
         y = y + bias.float()
     y = y.to(COMPUTE_DTYPE)
@@ -100,10 +109,28 @@ def rms_norm_init(d: int, lead=(), device=None):
                                  device=device)}
 
 
+#: elements of a row summed apart, then their sums (`_mean_square`)
+NORM_RUN = 64
+
+
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """The mean of xf * xf over the last axis, keepdim.  On the card, as
+    the sums of runs of NORM_RUN elements and then the runs' sum: torch's
+    one-pass mean sums a row in another order at another row count (a
+    chunked step's rows against a decode step's), two short sums do not,
+    so a row gets the same bits alone, among a batch or in a chunk.  On
+    the CPU, torch's mean, as before."""
+    d = xf.shape[-1]
+    sq = xf * xf
+    if not xf.is_cuda or d % NORM_RUN:
+        return sq.mean(dim=-1, keepdim=True)
+    runs = sq.reshape(*xf.shape[:-1], d // NORM_RUN, NORM_RUN).sum(dim=-1)
+    return runs.sum(dim=-1, keepdim=True) / d
+
+
 def rms_norm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (1.0 + params["scale"])
+    y = xf * torch.rsqrt(_mean_square(xf) + eps) * (1.0 + params["scale"])
     return y.to(COMPUTE_DTYPE)
 
 

@@ -14,7 +14,8 @@
   path, queueing split, role utilisation, page-pool pressure — and
   score it against a declarative :class:`SLOSpec`.
 
-Plus :func:`timeit` (the best-of-N wall timer, synchronising the card)
+Plus :func:`timeit` (the best-of-N timer: device time for a result on a
+card, wall time otherwise)
 and :func:`profile_trace` (an optional ``torch.profiler`` capture).
 """
 from repro_torch.obs.analyze import SLOSpec, TraceReport, analyze, load_trace

@@ -1,12 +1,16 @@
-"""`obs.timeit` — the port's best-of-N wall timer for kernels and steps.
+"""`obs.timeit` — the port's best-of-N timer for kernels and steps.
 
 One warmup call to absorb the first launch (a kernel library's build and
 load, cuBLAS handles), then ``reps`` samples of ``inner`` back-to-back
-calls with the best per-call mean kept.  A CUDA launch returns before the
-card finishes, so each sample ends in ``torch.cuda.synchronize()`` on the
-device of the result before the clock is read; a CPU result needs no
-wait.  Sub-millisecond kernels need the inner loop, and min-of-reps is
-the usual noise-floor estimate.
+calls with the best per-call mean kept.  A call whose result lives on
+one card is timed on the card: CUDA events bracket the ``inner`` calls,
+and a sleep kernel queued before them keeps the card busy while the host
+enqueues them, so a sample counts the card's work and not the host's
+launch overhead (a kernel of tens of microseconds launches slower from
+Python than it runs, and the wall clock would time the host).  Any other
+result is timed on the host's clock (a CUDA result on several cards
+after synchronising them).  Sub-millisecond kernels need the inner loop,
+and min-of-reps is the usual noise-floor estimate.
 """
 from __future__ import annotations
 
@@ -37,10 +41,16 @@ def timeit(fn, *args, reps: int = 3, inner: int = 3,
     """Best per-call seconds for ``fn(*args, **kw)``.
 
     ``warmup`` calls run first (waited on); then ``reps`` samples of
-    ``inner`` back-to-back calls, waiting once per sample, keeping the
-    least per-call mean.  Raises whatever the first call raises."""
+    ``inner`` back-to-back calls, keeping the least per-call mean: device
+    time where the warmup's result lives on one card, else wall time
+    (waiting once per sample).  Raises whatever the first call raises."""
+    out = None
     for _ in range(max(0, warmup)):
-        _wait(fn(*args, **kw))
+        out = fn(*args, **kw)
+        _wait(out)
+    devs = _devices(out)
+    if len(devs) == 1:
+        return _device_seconds(fn, args, kw, reps, inner, devs.pop())
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -49,3 +59,27 @@ def timeit(fn, *args, reps: int = 3, inner: int = 3,
         _wait(out)
         best = min(best, (time.perf_counter() - t0) / inner)
     return best
+
+
+def _device_seconds(fn, args, kw, reps, inner, dev) -> float:
+    """The card's seconds a call, best of ``reps`` samples of ``inner``
+    calls between two CUDA events; a sleep of twice the host's enqueue
+    time (at <= 2 GHz) queued first, so the card waits on no launch."""
+    with torch.cuda.device(dev):
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        cycles = int(max(host * inner, 1e-4) * 4e9)
+        best = float("inf")
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            for _ in range(inner):
+                fn(*args, **kw)
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b) / 1e3 / inner)
+        return best

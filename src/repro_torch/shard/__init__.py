@@ -23,11 +23,12 @@ from repro_torch.shard.apply import (apply_fc_sharded,
                                      paged_attention_sharded)
 from repro_torch.shard.partition import (Band, local_view,
                                          pad_params_for_plan, place_state,
-                                         prepare_params)
+                                         prepare_params, tune_local_views)
 from repro_torch.shard.plan import ShardingPlan, make_plan
 
 __all__ = [
     "Band", "ShardingPlan", "apply_fc_sharded", "local_view", "make_plan",
     "pad_params_for_plan", "paged_attention_chunk_sharded",
     "paged_attention_sharded", "place_state", "prepare_params",
+    "tune_local_views",
 ]

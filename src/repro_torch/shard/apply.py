@@ -26,8 +26,9 @@ to them).
 `paged_attention_sharded` / `paged_attention_chunk_sharded` do the same
 for K2 / K3: where the pool is banded by KV heads, a rank runs the kernel
 on its heads (and their query groups) and the head outputs are gathered.
-K2 / K3 split a query's keys by its context alone, so a head group gets
-the whole launch's bits.
+K2 / K3 split a query's keys by its context alone (under the whole
+geometry's tuned range, ``split_hkv``), so a head group gets the whole
+launch's bits.
 """
 from __future__ import annotations
 
@@ -142,7 +143,8 @@ def paged_attention_sharded(plan, q: torch.Tensor, pool, table: torch.Tensor,
         return kvs.paged_attention(q, pool, table, cur_pos, window,
                                    scale=scale, cap=cap)
     o = kvs.paged_attention(_query_heads(plan, n_kv, q, pool), pool, table,
-                            cur_pos, window, scale=scale, cap=cap)
+                            cur_pos, window, scale=scale, cap=cap,
+                            split_hkv=n_kv)
     return comm.all_gather_cat(o, plan.group, dim=1)
 
 
@@ -160,5 +162,5 @@ def paged_attention_chunk_sharded(plan, q: torch.Tensor, pool,
                                          scale=scale, cap=cap)
     o = kvs.paged_attention_chunk(_query_heads(plan, n_kv, q, pool), pool,
                                   table, q_pos, window, scale=scale,
-                                  cap=cap)
+                                  cap=cap, split_hkv=n_kv)
     return comm.all_gather_cat(o, plan.group, dim=1)

@@ -4,7 +4,9 @@ The shard layer needs two collectives over a model-axis group: the
 all-gather that joins the ranks' output bands along the feature axis
 (the gather policy) and the all-reduce sum of partial products (int8's
 psum policy): the list form of ``dist.all_gather`` (what torch 2.11 and
-later both take) and ``dist.all_reduce``, on the group's own backend; a
+later both take) and ``dist.all_reduce``, on the group's own backend
+(and, before a session starts, the all-reduce max through which the
+ranks' tuners agree on one winner); a
 collective that fails raises, and the call with it.  Data-parallel
 training gathers every rank's gradients as one buffer a step
 (:func:`pack` / :func:`unpack`, :func:`all_gather_list`), and each rank
@@ -122,6 +124,28 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     STATS["reduces"] += 1
     return out
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of the group's ranks' ``x`` (a new tensor): the
+    tuner's agreement on candidate times, so every rank picks the same
+    winner."""
+    import torch.distributed as dist
+    out = x.contiguous().clone()
+    with _Timed(out):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    STATS["reduces"] += 1
+    return out
+
+
+def max_over(group, device):
+    """A tuner's ``reduce`` (`kernels.tune.autotune`): candidates' seconds
+    -> their max over ``group``'s ranks, so every rank picks the same
+    winner."""
+    def reduce(secs):
+        t = torch.tensor(secs, dtype=torch.float64, device=device)
+        return all_reduce_max(t, group).tolist()
+    return reduce
 
 
 def all_equal(x: torch.Tensor, group=None) -> bool:

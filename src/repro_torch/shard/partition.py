@@ -197,6 +197,46 @@ def place_state(plan, state: Dict, n_kv: int) -> Dict:
     return dict(state, layers=dict(state["layers"], kv=pool))
 
 
+def tune_local_views(params: Dict, plan, batch: int, chunk: int = 1) -> int:
+    """Autotune the launch plans of this rank's share of ``params`` under
+    ``plan`` (`kernels.tune`), so a mesh session's launches find their
+    winners.  A band launches with the whole's split, so each rank times
+    its own band under each candidate of the whole geometry, the ranks
+    take each candidate's MAX over the group, and every rank records the
+    same winner under the whole's key: the mesh keeps its bit-identity to
+    one device.  A compressed leaf the plan runs whole is timed whole,
+    under the same agreement.  Returns the leaves visited (tuned or found
+    in the cache)."""
+    from repro_torch.kernels import tune
+    from repro_torch.shard import comm
+    if plan.tp == 1:
+        return 0
+    tuned = 0
+
+    def walk(tree, path):
+        nonlocal tuned
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        if not isinstance(tree, sfc.CompressedFC) or tree.mode == "dense":
+            return
+        whole = tune._layer0_view(tree)
+        reduce = comm.max_over(plan.group, tune._weights(whole).device)
+        if plan.banded(path):
+            band = band_leaf(plan, whole)
+            if band.policy == "psum":     # no kernel: a torch.matmul
+                return
+            tune.tune_layer(band.local, batch, chunk, split=band.split,
+                            reduce=reduce)
+        else:
+            tune.tune_layer(whole, batch, chunk, reduce=reduce)
+        tuned += 1
+
+    walk(params, ())
+    return tuned
+
+
 def band_bytes(tree) -> int:
     """Bytes of the tensors a (prepared) params tree holds."""
     if isinstance(tree, dict):

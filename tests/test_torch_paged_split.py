@@ -162,11 +162,13 @@ def test_launch_refuses_what_the_kernel_does_not_take(case, err, match,
 
 def test_launch_reaches_the_library_with_what_it_takes(monkeypatch):
     """An input the kernel takes passes the check and goes on to the
-    library (stopped here: there is no card)."""
+    library of the untuned range (stopped here: there is no card, whose
+    SM count the tuner's lookup reads, so a card's is given)."""
     def stop(name):
         assert name == "paged_attention"
         raise RuntimeError("stopped at the launch")
     monkeypatch.setattr(build, "library", stop)
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
     with pytest.raises(RuntimeError, match="stopped at the launch"):
         tpa._launch(*_operands(dh=80), -1, 1.0, None)
 
