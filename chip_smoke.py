@@ -173,7 +173,29 @@ Phases, each of which exits non-zero when it fails:
     (params and losses bit for bit one device's at ``microbatches=2``),
     bf16 and int8 on the wire (finite, falling losses, the ranks' params
     the same digest; int8 within DP_INT8_LOSS_TOL of the uncompressed
-    losses), bytes a rank a step, gather ms and step ms logged.
+    losses), bytes a rank a step, gather ms and step ms logged;
+16. the Engine's benchmark surface (``engine benchmarks``, last):
+    ``Engine.benchmark`` over dense, int8, codebook4, acsr and aida, with
+    its kv (full vs paged int8 pages, the attention / FC split of a
+    decode step timed on the card), serving (chunked prefill, traffic,
+    prefix cache, preemption), disagg, resil (four fault presets, each
+    replayed) and capacity sections and the cost-model backends: a
+    reduced llama3-8b on the card and on the CPU from the same seed-0
+    weights, every deterministic fact (token, step, tick, page, handoff
+    and fault counts, compression ratios, the capacity section, the
+    backends) equal and every session's tokens equal up to near-tie
+    flips ((a)'s launches logged, not counted); then llama3-8b at full
+    width cut to 4 layers on the card: every mode serves all its tokens,
+    token parity and determinism hold, no page leaks, the capacity replay
+    is byte for byte and its choice the CPU's, the KV bytes / token the
+    closed form, the attention shares in (0, 1), the engine's raw weights
+    unchanged, no mode's or section's engine outliving it and the peak
+    allocation within one compressed copy; tok/s per mode, TTFT / TPOT,
+    disagg against co-located, goodput under faults, the attention / FC
+    times and the peak logged, with K1-K5's launches by shape (K1 at 2, 3
+    and 24 columns, K4 / K5 at 2 rows, K2 / K3 on pages of 8, K3 at
+    C = 4: shapes phases 1-4 hold against the plain versions and time; K2
+    and K3 timed again at this run's tables).
 
 Every session on the card pre-tunes its kernels first (`Engine._pretune`,
 logged with its seconds and new winners); the serves' launch counts
@@ -334,9 +356,11 @@ HYMBA_PROJECTIONS = [              # hymba-1.5b: attention, MLP, mamba
 # takes its loop for widths other than 1, 4 and 8; 12 and 40 take the wide
 # variant's 16-column pass and a second (8-column) group after a 32-column
 # one; 4 (decode), 16 (a chunk-8 step of the disaggregated prefill role's
-# 2 slots) and 32 (a chunk-8 step of 4 slots) are the serves', and timed
-K1_COLUMNS = (1, 3, 4, 8, 12, 16, 32, 40)
-K1_TIMED = (4, 16, 32)
+# 2 slots) and 32 (a chunk-8 step of 4 slots) are the serves', and timed;
+# so are 2, 3 and 24, the engine benchmarks' (2 or 3 slots decoding, 3
+# slots at chunk 8)
+K1_COLUMNS = (1, 2, 3, 4, 8, 12, 16, 24, 32, 40)
+K1_TIMED = (2, 3, 4, 16, 24, 32)
 
 
 def _k1_weight(gen, dev, n_out, n_in, name):
@@ -600,6 +624,10 @@ PAGED_HEAD_DIMS = ((80, 32, 8, 64, 30.0), (96, 32, 32, 64, 30.0),
 # 2048 beside llama3-8b's: (model, H, Hkv, Dh, window)
 PAGED_MODELS = (("hymba-1.5b", 25, 5, 64, 1024),
                 ("phi-3-vision-4.2b", 32, 32, 96, -1))
+# llama3-8b's (page size, context) beside the serves' 16-key pages: the
+# engine benchmarks' pages of 8 (serving, disagg, resil, capacity) and the
+# 64 positions of their caches
+PAGED_BENCH = ((8, 37), (8, 64), (16, 64))
 
 
 def _k2_inputs(dev, gen, ctx, kv_dtype, batch=4, h=32, hkv=8, dh=128,
@@ -645,48 +673,54 @@ def _alone_equals_among(fn, q, table, pos, out, what):
                                  "same row among the batch")
 
 
-def _paged_bound(dev, table, pos, hkv, ps, dh, q, out_elems, mask_pairs):
+def _paged_bound(dev, table, pos, hkv, ps, dh, q, out_elems, mask_pairs,
+                 elem=2):
     """(bound ms, what bounds it): the live pages of each row read once
-    (up to the page of its furthest query), q, table and positions read,
-    the f32 output written; 4 flops per open (query, key) pair, head dim
-    and query head, at the bf16 tensor-core peak."""
+    (up to the page of its furthest query; ``elem`` bytes a value, int8
+    pages with their f32 scales), q, table and positions read, the f32
+    output written; 4 flops per open (query, key) pair, head dim and
+    query head, at the bf16 tensor-core peak."""
     import torch
     npp = table.shape[1]
     last = torch.clamp(pos.reshape(table.shape[0], -1).max(dim=1).values
                        // ps, max=npp - 1)
     live_pages = int(((table >= 0) & (
         torch.arange(npp, device=dev)[None, :] <= last[:, None])).sum())
-    moved = 2 * live_pages * hkv * ps * dh * 2 + q.numel() * 2 + \
-        out_elems * 4 + table.numel() * 4 + pos.numel() * 4
+    moved = 2 * live_pages * hkv * (ps * dh * elem + (4 if elem == 1
+                                                      else 0)) + \
+        q.numel() * 2 + out_elems * 4 + table.numel() * 4 + pos.numel() * 4
     return bound(moved, 4 * mask_pairs * dh, BF16_FLOPS), live_pages
 
 
 def k2_phase(dev, flush):
     """K2 against its plain version at llama3-8b's geometry (contexts 37
     and 2048, bf16 and int8 pages, window -1 / 64, cap none / 30, a row
-    with holes, an idle row), every row alone bit-identical to the same
-    row among 4; at Dh 80, 96, 64 and 256 (softcap 50) and hymba's query
-    group of 5 (25 / 5 heads, window 1024); with an f32 q; then timed at
-    PAGED_TIMED and at PAGED_MODELS' geometries.  Returns (max abs err,
+    with holes, an idle row; PAGED_BENCH's pages of 8 and context 64),
+    every row alone bit-identical to the same row among 4; at Dh 80,
+    96, 64 and 256 (softcap 50) and hymba's query group of 5 (25 / 5
+    heads, window 1024); with an f32 q; then timed at PAGED_TIMED and at
+    PAGED_MODELS' geometries.  Returns (max abs err,
     {ctx: times}, {(model, ctx): times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import paged_attention
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err, n = 0.0, 0
-    cases = [(128, 32, 8, ctx, kv, window, cap)
+    cases = [(128, 32, 8, ctx, kv, window, cap, 16)
              for ctx in (37, 2048) for kv in ("bf16", "int8")
              for window in (-1, 64) for cap in (None, 30.0)]
-    cases += [(dh, h, hkv, ctx, kv, window, cap)
+    cases += [(dh, h, hkv, ctx, kv, window, cap, 16)
               for dh, h, hkv, win, wcap in PAGED_HEAD_DIMS
               for ctx in (37, 2048) for kv in ("bf16", "int8")
               for window, cap in ((-1, None), (win, wcap))]
-    for dh, h, hkv, ctx, kv_dtype, window, cap in cases:
+    cases += [(128, 32, 8, ctx, kv, -1, None, ps)
+              for ps, ctx in PAGED_BENCH for kv in ("bf16", "int8")]
+    for dh, h, hkv, ctx, kv_dtype, window, cap, ps in cases:
         q, pool, table, cur = _k2_inputs(dev, gen, ctx, kv_dtype, h=h,
-                                         hkv=hkv, dh=dh)
+                                         hkv=hkv, dh=dh, ps=ps)
         scale = dh ** -0.5
         what = (f"paged_attention Dh={dh} H={h}/{hkv} ctx={ctx} {kv_dtype} "
-                f"window={window} cap={cap}")
+                f"window={window} cap={cap} ps={ps}")
         out = paged_attention(q, pool, table, cur, window, scale=scale,
                               cap=cap)
         plain = ref.paged_attention_ref(q, *pool, table, cur, window, scale,
@@ -706,8 +740,8 @@ def k2_phase(dev, flush):
                                                0, 1e-4))
             n += 1
     log(f"K2 {n} cases agree (Dh 128, 80, 96, 64, 256; a query group of "
-        f"5; f32 q), max abs err {max_err:.2e}; every row alone "
-        "bit-identical to it among 4")
+        f"5; f32 q; pages of 16 and 8), max abs err {max_err:.2e}; every "
+        "row alone bit-identical to it among 4")
     rows = {ctx: _time_k2(dev, gen, flush, ctx, max_len, "")
             for ctx, max_len in PAGED_TIMED}
     models = {(m, ctx): _time_k2(dev, gen, flush, ctx, ctx, f" {m}", win,
@@ -716,27 +750,38 @@ def k2_phase(dev, flush):
     return max_err, rows, models
 
 
-def _time_k2(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
+def _time_k2(dev, gen, flush, ctx, max_len, label, window=-1,
+             kv_dtype="bf16", **geo):
     """K2's, its plain version's and SDPA's times (on K / V gathered from
-    the pages, the window as a mask) at one context and geometry, beside
-    its bound.  Returns the row of the kernels line."""
+    bf16 pages, the window as a mask; int8 pages have no library call) at
+    one context and geometry, beside its bound.  Returns the row of the
+    kernels line."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import paged_attention
     from repro_torch.kvstore.pool import chunk_attention_mask
-    q, pool, table, cur = _k2_inputs(dev, gen, ctx, "bf16", max_len=max_len,
-                                     **geo)
+    q, pool, table, cur = _k2_inputs(dev, gen, ctx, kv_dtype,
+                                     max_len=max_len, **geo)
     _, hkv, ps, dh = pool.k_pages.shape
     b, h = q.shape[:2]
     scale = dh ** -0.5
     mask = chunk_attention_mask(table, cur[:, None], window, ps)  # [B, 1, S]
     pairs = int(mask.sum()) * h
     (bms, by), live_pages = _paged_bound(dev, table, cur, hkv, ps, dh, q,
-                                         b * h * dh, pairs)
+                                         b * h * dh, pairs,
+                                         pool.k_pages.element_size())
     t_k, host = median_ms(lambda: paged_attention(
         q, pool, table, cur, window, scale=scale), flush=flush)
     t_p, _ = median_ms(lambda: ref.paged_attention_ref(
         q, *pool, table, cur, window, scale, None), iters=5, flush=flush)
+    if kv_dtype != "bf16":
+        log(f"K2{label} H={h}/{hkv} Dh={dh} ps={ps} {kv_dtype} "
+            f"window={window} ctx={ctx} npp={table.shape[1]} "
+            f"live_pages={live_pages} kernel_ms={t_k:.4f} "
+            f"plain_ms={t_p:.4f} bound_ms={bms:.5f} ({by}) "
+            f"host_enqueue_ms={host:.4f}")
+        return {"ms": t_k, "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+                "library_ms": None}
     safe = table.long().clamp(min=0)[:, : -(-ctx // ps)]
     kk = pool.k_pages[safe].permute(0, 2, 1, 3, 4).reshape(
         b, hkv, -1, dh)[:, :, :ctx].contiguous()
@@ -748,7 +793,7 @@ def _time_k2(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_l, _ = median_ms(lambda: sdpa(qq, kk, vv, attn_mask=amask, scale=scale,
                                     enable_gqa=True), flush=flush)
-    log(f"K2{label} H={h}/{hkv} Dh={dh} window={window} ctx={ctx} "
+    log(f"K2{label} H={h}/{hkv} Dh={dh} ps={ps} window={window} ctx={ctx} "
         f"npp={table.shape[1]} live_pages={live_pages} kernel_ms={t_k:.4f} "
         f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.5f} ({by}) "
         f"host_enqueue_ms={host:.4f}")
@@ -778,33 +823,37 @@ def _k3_inputs(dev, gen, ctx, kv_dtype, chunk, max_len=None, **geo):
 def k3_phase(dev, flush):
     """K3 against its plain version at C = 1 and 8 over K2's cases (and
     Dh 80 / 96 / 64 / 256 and hymba's group of 5 at C = 8, that group at
-    C = 1 too): at C = 1 bit-identical to K2; at C = 8 every row
-    bit-identical to K2 on that query alone at its position, and every
-    batch row alone to it among 4; then timed at C = 8 at PAGED_TIMED and
-    at phi-3-vision's geometry.  Returns (max abs err, {ctx: times},
-    {(model, ctx): times})."""
+    C = 1 too; llama3-8b at C = 4 and 8 over PAGED_BENCH's pages and
+    contexts, the engine benchmarks' chunks): at C = 1 bit-identical to
+    K2; at C = 4 and 8 every row bit-identical to K2 on that query alone
+    at its position, and every batch row alone to it among 4; then timed
+    at C = 8 at PAGED_TIMED and at phi-3-vision's geometry.  Returns
+    (max abs err, {ctx: times}, {(model, ctx): times})."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import (paged_attention,
                                                      paged_attention_chunk)
     gen = torch.Generator(device=dev).manual_seed(2)
     max_err, n = 0.0, 0
-    cases = [(128, 32, 8, chunk, ctx, kv, window, cap)
+    cases = [(128, 32, 8, chunk, ctx, kv, window, cap, 16)
              for chunk in (1, 8) for ctx in (37, 2048)
              for kv in ("bf16", "int8") for window in (-1, 64)
              for cap in (None, 30.0)]
-    cases += [(dh, h, hkv, 8, ctx, kv, window, cap)
+    cases += [(dh, h, hkv, 8, ctx, kv, window, cap, 16)
               for dh, h, hkv, win, wcap in PAGED_HEAD_DIMS
               for ctx in (37, 2048) for kv in ("bf16", "int8")
               for window, cap in ((-1, None), (win, wcap))]
-    cases += [(64, 25, 5, 1, ctx, "bf16", window, None)
+    cases += [(64, 25, 5, 1, ctx, "bf16", window, None, 16)
               for ctx in (37, 2048) for window in (-1, 1024)]
-    for dh, h, hkv, chunk, ctx, kv_dtype, window, cap in cases:
+    cases += [(128, 32, 8, chunk, ctx, kv, -1, None, ps)
+              for chunk in (4, 8) for ps, ctx in PAGED_BENCH
+              for kv in ("bf16", "int8")]
+    for dh, h, hkv, chunk, ctx, kv_dtype, window, cap, ps in cases:
         q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, kv_dtype, chunk,
-                                           h=h, hkv=hkv, dh=dh)
+                                           h=h, hkv=hkv, dh=dh, ps=ps)
         scale = dh ** -0.5
         what = (f"paged_attention_chunk C={chunk} Dh={dh} H={h}/{hkv} "
-                f"ctx={ctx} {kv_dtype} window={window} cap={cap}")
+                f"ctx={ctx} {kv_dtype} window={window} cap={cap} ps={ps}")
         out = paged_attention_chunk(q, pool, table, q_pos, window,
                                     scale=scale, cap=cap)
         plain = ref.paged_attention_chunk_ref(q, *pool, table, q_pos,
@@ -825,7 +874,8 @@ def k3_phase(dev, flush):
             qq, pool, tt, pp, window, scale=scale, cap=cap),
             q, table, q_pos, out, what)
     log(f"K3 {n} cases agree (Dh 128, 80, 96, 64, 256; a query group of "
-        "5 at C = 1 and 8), max abs err "
+        "5 at C = 1 and 8; llama3-8b at C = 4 and 8 on pages of 8), max "
+        "abs err "
         f"{max_err:.2e}; "
         "every query bit-identical to K2 on it alone (C = 1 and 8), every "
         "row alone to it among 4")
@@ -839,15 +889,16 @@ def k3_phase(dev, flush):
     return max_err, rows, models
 
 
-def _time_k3(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
-    """K3's (C = 8), its plain version's and SDPA's (chunk mask) times at
-    one context and geometry, beside its bound.  Returns the row of the
-    kernels line."""
+def _time_k3(dev, gen, flush, ctx, max_len, label, window=-1, chunk=8,
+             **geo):
+    """K3's (C = ``chunk``, bf16 pages), its plain version's and SDPA's
+    (chunk mask) times at one context and geometry, beside its bound.
+    Returns the row of the kernels line."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kvstore.paged_attention import paged_attention_chunk
     from repro_torch.kvstore.pool import chunk_attention_mask
-    q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, "bf16", 8,
+    q, pool, table, q_pos = _k3_inputs(dev, gen, ctx, "bf16", chunk,
                                        max_len=max_len, **geo)
     _, hkv, ps, dh = pool.k_pages.shape
     b, h, c = q.shape[:3]
@@ -868,7 +919,8 @@ def _time_k3(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_l, _ = median_ms(lambda: sdpa(q, kk, vv, attn_mask=amask, scale=scale,
                                     enable_gqa=True), flush=flush)
-    log(f"K3{label} C={c} H={h}/{hkv} Dh={dh} window={window} ctx={ctx} "
+    log(f"K3{label} C={c} H={h}/{hkv} Dh={dh} ps={ps} window={window} "
+        f"ctx={ctx} "
         f"npp={table.shape[1]} live_pages={live_pages} kernel_ms={t_k:.4f} "
         f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.5f} ({by}) "
         f"host_enqueue_ms={host:.4f}")
@@ -877,9 +929,14 @@ def _time_k3(dev, gen, flush, ctx, max_len, label, window=-1, **geo):
 
 
 # -------------------------------------------------------------- K4, K5
+#: the rows K4 and K5 are held and timed at: a decode step of the engine
+#: benchmarks' 2 slots and of the serves' 4, and a chunk-8 step of 4 slots
+FC_ROWS = (2, 4, 32)
+
+
 def fc_phase(dev, flush):
     """K4 (int8) and K5 (codebook4) against their plain versions at
-    llama3-8b's seven projections, at the decode rows (M = 4) and a
+    llama3-8b's seven projections, at the decode rows (M = 2, 4) and a
     chunk-8 step's rows (M = 32), with bias on wq and silu on gate, and at
     gemma2-2b's gate with its tanh-gelu epilogue (not timed); every
     call repeated bit for bit, and every row alone bit-identical to the
@@ -893,7 +950,7 @@ def fc_phase(dev, flush):
     errs = {"int8": 0.0, "codebook4": 0.0}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     tot = {(mode, m): dict.fromkeys(keys, 0.0)
-           for mode in errs for m in (4, 32)}
+           for mode in errs for m in FC_ROWS}
     unequal = []
     for name, n_out, n_in in PROJECTIONS + [GELU_GATE]:
         w = torch.randn((n_out, n_in), generator=gen, device=dev) * \
@@ -913,7 +970,7 @@ def fc_phase(dev, flush):
                 wbytes = n_out * n_in // 2 + 64
             w_lib = sfc.dense_equivalent(layer).T.contiguous().to(
                 torch.bfloat16)
-            for m in (4, 32):
+            for m in FC_ROWS:
                 x = torch.randn((m, n_in), generator=gen, device=dev)
                 out = kern(x, *wts, bias=bias, activation=act)
                 again = kern(x, *wts, bias=bias, activation=act)
@@ -962,7 +1019,7 @@ def fc_phase(dev, flush):
         log(f"{mode} one layer (7 projections, M={m}): "
             + " ".join(f"{k}={row[k]:.4f}" for k in keys)
             + f" bound_by={row['bound_by']}")
-    log("K4/K5 bit for bit (reruns; every row alone vs among 4 and 32): "
+    log("K4/K5 bit for bit (reruns; every row alone vs among 2, 4 and 32): "
         + ("all equal" if not unequal else "; ".join(unequal)))
     if unequal:
         raise AssertionError("K4/K5: results that should repeat bit for "
@@ -4270,6 +4327,471 @@ def mesh_serve_phase(dev):
             for k in one["launches"]}
 
 
+# ---------------------------------------------------- engine benchmarks
+BENCH_MODES = ("dense", "int8", "codebook4", "acsr", "aida")
+#: llama3-8b at full width, cut to this depth as the mesh phase cuts it
+BENCH_LAYERS = 4
+#: summarize()'s fields counted in requests, tokens, steps and ticks
+BENCH_STEP_FIELDS = ("requests", "completed", "tokens", "steps",
+                     "ttft_sched", "queue_wait_sched", "first_token_calls",
+                     "preemptions", "prefix_pages_reused", "outcomes")
+
+
+@contextlib.contextmanager
+def _served_streams():
+    """Every session run inside the block (plain and disaggregated), in
+    order: its results and, where nothing was preempted, each request's
+    top-2 margins of this run (a preempted request emits again what it
+    had emitted, so its margins would not line up with its tokens)."""
+    from repro_torch.api.session import Session
+    from repro_torch.disagg.session import DisaggSession
+    runs, saved = [], {}
+
+    def preempted(sess):
+        if isinstance(sess, DisaggSession):
+            return sess.pre.stats["preemptions"] + \
+                sess.dec.stats["preemptions"]
+        return sess.stats["preemptions"]
+
+    for cls in (Session, DisaggSession):
+        saved[cls] = cls.run_workload
+
+        def wrapped(self, arrivals, *a, _inner=saved[cls], **kw):
+            before = {rid: len(m) for rid, m in self.margins.items()}
+            res = _inner(self, arrivals, *a, **kw)
+            margins = None if preempted(self) else {
+                rid: m[before.get(rid, 0):]
+                for rid, m in self.margins.items()}
+            runs.append((list(res), margins))
+            return res
+        cls.run_workload = wrapped
+    try:
+        yield runs
+    finally:
+        for cls, fn in saved.items():
+            cls.run_workload = fn
+
+
+def _bench_facts(out):
+    """The deterministic facts of an `Engine.benchmark` dict: token, step,
+    tick, page, handoff and counter facts, compression ratios, the
+    capacity section whole and the cost-model backends."""
+    facts = {"backends": out["backends"],
+             "modes": {m: {k: r[k] for k in ("backend", "tokens",
+                                             "compression_ratio")}
+                       for m, r in out["modes"].items()}}
+    kv = out["kv"]
+    facts["kv"] = {"kv_bytes_per_token": kv["kv_bytes_per_token"],
+                   "full_tokens": kv["full"]["tokens"],
+                   **{k: kv["paged"][k] for k in ("tokens", "pages_peak",
+                                                  "page_allocs")}}
+    sv = out["serving"]
+    facts["serving"] = {
+        "prefill": {k: (v["first_token_calls"] if isinstance(v, dict)
+                        else v) for k, v in sv["prefill"].items()},
+        "throughput": {k: sv["throughput"][k] for k in BENCH_STEP_FIELDS},
+        "prefix": sv["prefix"], "preemption": sv["preemption"]}
+    dg = out["disagg"]
+    facts["disagg"] = {
+        "token_parity": dg["token_parity"],
+        "roles": dg["disagg"]["roles"],
+        "handoff": {k: dg["disagg"]["handoff"][k]
+                    for k in ("count", "latency_ticks", "migrated_pages",
+                              "migrated_bytes")},
+        **{label: {k: dg[label][k]
+                   for k in BENCH_STEP_FIELDS + ("pages_leaked",)}
+           for label in ("colocated", "disagg")}}
+    rs = out["resil"]
+    facts["resil"] = {
+        "clean": {k: rs["clean"][k] for k in ("completed", "pages_leaked")},
+        **{p: {k: v for k, v in r.items() if k != "goodput_vs_clean"}
+           for p, r in rs["presets"].items()}}
+    facts["capacity"] = out["capacity"]
+    return facts
+
+
+def _first_difference(a, b, path=""):
+    """The key path of the first place two JSON-like values differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=str):
+            if k not in a or k not in b:
+                return f"{path}/{k}"
+            d = _first_difference(a[k], b[k], f"{path}/{k}")
+            if d is not None:
+                return d
+        return None
+    return None if a == b else path or "/"
+
+
+class _Tallied:
+    """A kernel wrapper standing in for itself: each call goes to the
+    wrapper, and the launches it adds to the wrapper's count (read around
+    the call, outside the tuner's ``counted_apart``) are tallied by the
+    shape ``key`` gives the call's arguments.  ``launches`` is the
+    wrapper's own count, so the tuner's bookkeeping reads it through."""
+
+    def __init__(self, fn, key, tally, apart):
+        self.fn, self.key, self.tally, self.apart = fn, key, tally, apart
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+    def __call__(self, *a, **kw):
+        n = self.fn.launches
+        out = self.fn(*a, **kw)
+        if self.fn.launches > n and not self.apart[0]:
+            k = self.key(*a, **kw)
+            self.tally[k] = self.tally.get(k, 0) + self.fn.launches - n
+        return out
+
+
+@contextlib.contextmanager
+def _launch_shapes():
+    """K1-K5's launches inside the block by the shape each got, as the
+    kernels line lists shapes: K1's variants by x's columns, K4 / K5 by
+    x's rows, K2 by (page size, table width in keys, KV dtype), K3 by
+    (page size, table width, chunk, KV dtype); the tuner's own launches
+    are left out, as the launch counts leave them out."""
+    import torch
+    from repro_torch import kvstore as kvs
+    from repro_torch.kernels import acsr_spmv as sp
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import tune
+
+    def pages(pool, table, *chunk):
+        ps = pool.k_pages.shape[2]
+        kind = "int8" if pool.k_pages.dtype == torch.int8 else "bf16"
+        return (ps, table.shape[1] * ps, *chunk, kind)
+    apart, tally = [0], {}
+    sites = {  # (module, attribute, kernels line name, shape of a call)
+        "acsr_spmv_gather": (sp, "spmv_gather", lambda b, x, *a, **k:
+                             x.shape[1]),
+        "acsr_spmv_wide": (sp, "spmv_wide", lambda b, x, *a, **k:
+                           x.shape[1]),
+        "int8_matmul": (i8, "int8_matmul", lambda x, *a, **k: x.shape[0]),
+        "lut_matmul": (lm, "lut_matmul", lambda x, *a, **k: x.shape[0]),
+        "paged_attention_decode": (kvs, "paged_attention",
+                                   lambda q, pool, table, *a, **k:
+                                   pages(pool, table)),
+        "paged_attention_chunk": (kvs, "paged_attention_chunk",
+                                  lambda q, pool, table, *a, **k:
+                                  pages(pool, table, q.shape[2]))}
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr, _) in sites.items()}
+    apart_fn = tune.counted_apart
+
+    @contextlib.contextmanager
+    def counted_apart():
+        apart[0] += 1
+        try:
+            with apart_fn():
+                yield
+        finally:
+            apart[0] -= 1
+    for name, (mod, attr, key) in sites.items():
+        setattr(mod, attr, _Tallied(saved[name], key,
+                                    tally.setdefault(name, {}), apart))
+    tune.counted_apart = counted_apart
+    try:
+        yield tally
+    finally:
+        tune.counted_apart = apart_fn
+        for name, (mod, attr, _) in sites.items():
+            setattr(mod, attr, saved[name])
+
+
+@contextlib.contextmanager
+def _inner_footprints(dev):
+    """Every `Engine._inner` inside the block (a mode's or a section's
+    compressed engine) measured on the card: the bytes it leaves
+    allocated (its copy of the weights) and the peak above them while it
+    is made (the compressor's scratch).  Yields a dict of ``copies`` and
+    ``scratch`` (bytes, one an engine) and ``peak`` (the block's peak
+    allocation, read as it ends)."""
+    import torch
+    from repro_torch.api.engine import Engine
+    made = Engine._inner
+    seen = {"copies": [], "scratch": [], "peak": 0}
+
+    def inner(self, *a, **kw):
+        torch.cuda.synchronize(dev)
+        seen["peak"] = max(seen["peak"],
+                           torch.cuda.max_memory_allocated(dev))
+        m0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = made(self, *a, **kw)
+        torch.cuda.synchronize(dev)
+        m1 = torch.cuda.memory_allocated(dev)
+        seen["copies"].append(m1 - m0)
+        seen["scratch"].append(torch.cuda.max_memory_allocated(dev) - m1)
+        return eng
+    Engine._inner = inner
+    try:
+        yield seen
+    finally:
+        Engine._inner = made
+        torch.cuda.synchronize(dev)
+        seen["peak"] = max(seen["peak"],
+                           torch.cuda.max_memory_allocated(dev))
+
+
+def _bench_counted(dev, eng, label, by_shape=False):
+    """``eng.benchmark(modes=BENCH_MODES)``, every launch count set to 0
+    just before and read just after, and every session's results and
+    margins recorded.  Returns (the benchmark dict, the launches, the
+    runs, seconds, and with ``by_shape`` K1-K5's launches by shape,
+    which must add up to the launches)."""
+    import torch
+    fns = _launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    with _served_streams() as runs, (
+            _launch_shapes() if by_shape else contextlib.nullcontext()) \
+            as shapes:
+        t0 = time.perf_counter()
+        out = eng.benchmark(modes=BENCH_MODES)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    log(f"{label}: Engine.benchmark in {dt:.1f} s, {len(runs)} session "
+        f"runs, launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    if by_shape:
+        log(f"{label}: launches by shape " + json.dumps(
+            {k: {str(s): n for s, n in v.items()} for k, v in shapes.items()}))
+        off = {k: (sum(v.values()), counts[k]) for k, v in shapes.items()
+               if sum(v.values()) != counts[k]}
+        if off:
+            raise AssertionError(f"{label}: launches by shape do not add up "
+                                 f"to the launch counts: {off}")
+    return out, counts, runs, dt, shapes
+
+
+def _log_bench(out, label):
+    """The numbers of one benchmark dict, on a few lines."""
+    for mode, r in out["modes"].items():
+        log(f"{label} mode {mode} [{r['backend']}]: {r['tokens']} tokens, "
+            f"{r['tok_per_s']:.2f} tok/s, ratio {r['compression_ratio']}, "
+            f"new winners {len(r['tiles'])}")
+    kv = out["kv"]
+    sh = kv["attn_time_share"]
+    log(f"{label} kv: full {kv['full']['tok_per_s']:.2f} vs paged "
+        f"{kv['paged']['tok_per_s']:.2f} tok/s (x{kv['paged_over_full']}), "
+        f"pages peak {kv['paged']['pages_peak']}, allocs "
+        f"{kv['paged']['page_allocs']}, new winners "
+        f"{len(kv['paged']['tiles'])}; bytes/token "
+        f"{json.dumps(kv['kv_bytes_per_token'])}; attention "
+        f"{sh['attn_us_full']} us full / {sh['attn_us_paged']} us paged, "
+        f"FC {sh['fc_us']} us, share full {sh['full']} / paged "
+        f"{sh['paged']}")
+    sv = out["serving"]
+    pf, th = sv["prefill"], sv["throughput"]
+    log(f"{label} serving: prefill {pf['prompt_len']} tokens in "
+        f"{pf['chunked']['first_token_calls']} calls (bound "
+        f"{pf['bound_calls']}, one token at a time "
+        f"{pf['one_token']['first_token_calls']}), TTFT "
+        f"{pf['chunked']['ttft_s']} vs {pf['one_token']['ttft_s']} s; "
+        f"heterogeneous {th['tok_per_s']} tok/s, {th['steps']} steps, TTFT "
+        f"p50 / p99 {_ms(th['ttft_s'])} ms, TPOT {_ms(th['tpot_s'])} ms; "
+        f"prefix hits {sv['prefix']['page_hits']}, preemptions "
+        f"{sv['preemption']['preemptions']}, new winners {len(sv['tiles'])}")
+    dg = out["disagg"]
+    for side in ("colocated", "disagg"):
+        s = dg[side]
+        log(f"{label} disagg {side}: {s['tok_per_s']} tok/s, {s['steps']} "
+            f"steps, TTFT p50 / p99 {_ms(s['ttft_s'])} ms, TPOT "
+            f"{_ms(s['tpot_s'])} ms")
+    log(f"{label} disagg: token parity {dg['token_parity']}, handoffs "
+        f"{dg['disagg']['handoff']['count']}, "
+        f"{dg['disagg']['handoff']['migrated_bytes']} bytes migrated")
+    rs = out["resil"]
+    log(f"{label} resil: clean {rs['clean']['tok_per_s']} tok/s; " + "; ".join(
+        f"{p} goodput x{r['goodput_vs_clean']} deterministic "
+        f"{r['deterministic']} faults {json.dumps(r['counters']['faults'])}"
+        for p, r in rs["presets"].items()))
+    cap = out["capacity"]
+    log(f"{label} capacity: chosen {cap['chosen']}, replay "
+        f"{cap['deterministic_replay']}, " + "; ".join(
+            f"{e['label']} pass {e['slo_pass']} span {e['span_ticks']} "
+            f"ticks" for e in cap["sweep"]))
+    log(f"{label} backends: {json.dumps(out['backends'])}")
+
+
+def _bench_checks(out, cfg, label):
+    """Every mode serves all its tokens; token parity and determinism hold;
+    no page leaks anywhere; the capacity replay is byte for byte; the KV
+    bytes / token are the closed form; the attention shares lie in (0,
+    1)."""
+    want = 4 * 8                      # benchmark()'s requests x max_new
+    bad = []
+    for mode, r in out["modes"].items():
+        if r["tokens"] != want:
+            bad.append(f"mode {mode} served {r['tokens']} of {want} tokens")
+    if not out["disagg"]["token_parity"]:
+        bad.append("disagg token parity")
+    leaks = {"prefix": out["serving"]["prefix"]["pages_leaked"],
+             "prefix_after_clear":
+                 out["serving"]["prefix"]["pages_leaked_after_clear"],
+             "preemption": out["serving"]["preemption"]["pages_leaked"],
+             "colocated": out["disagg"]["colocated"]["pages_leaked"],
+             "disagg": out["disagg"]["disagg"]["pages_leaked"],
+             "resil clean": out["resil"]["clean"]["pages_leaked"]}
+    for p, r in out["resil"]["presets"].items():
+        leaks[f"resil {p}"] = r["pages_leaked"]
+        if not r["deterministic"]:
+            bad.append(f"resil {p} not deterministic")
+        if r["completed"] != out["resil"]["requests"] or r["failed"]:
+            bad.append(f"resil {p} completed {r['completed']}")
+    bad += [f"{k} leaked {v} pages" for k, v in leaks.items() if v]
+    if out["capacity"]["deterministic_replay"] is not True:
+        bad.append("capacity replay")
+    n, dh, L, ps = cfg.n_kv, cfg.head_dim, cfg.n_layers, 16
+    paged, dense = (2 * n * dh + 2 * n * 4 / ps) * L, 2 * n * dh * 2 * L
+    closed = {"paged_int8": round(paged, 1), "dense_bf16": round(dense, 1),
+              "ratio": round(paged / dense, 4)}
+    if out["kv"]["kv_bytes_per_token"] != closed:
+        bad.append(f"kv bytes/token {out['kv']['kv_bytes_per_token']} vs "
+                   f"{closed}")
+    sh = out["kv"]["attn_time_share"]
+    if not (0 < sh["full"] < 1 and 0 < sh["paged"] < 1):
+        bad.append(f"attention shares {sh}")
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+
+
+def bench_phase(dev):
+    """The Engine's benchmark surface (`Engine.benchmark` over the five
+    modes, with its kv, serving, disagg, resil and capacity sections and
+    the cost-model backends).  (a) A reduced llama3-8b on the card and on
+    the CPU from the same seed-0 weights: every deterministic fact equal,
+    tokens equal up to near-tie flips, session by session.  (b) llama3-8b
+    at full width, cut to BENCH_LAYERS layers, on the card: every mode
+    serves all its tokens, token parity and determinism hold, nothing
+    leaks, the capacity choice equals the CPU's in (a), the engine's raw
+    weights come out unchanged, every mode's and section's engine is gone
+    once it is done, and the peak allocation stays within the raw weights
+    (and their clone for the check), one compressed copy and a step's
+    scratch (or the compressor's).  Returns (b)'s launches, by kernel and
+    by shape, and K2's and K3's times at (b)'s shapes ((a)'s launches are
+    logged, not counted: its widths are not the model's)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import Engine, Request, bridge, get, reduced
+    cfg = reduced(get("llama3-8b"))
+    cpu = Engine(cfg, device="cpu", seed=0)
+    card = Engine(cfg, params=bridge.to_device(cpu.params, dev), device=dev)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # small CPU ops: more threads only contend
+    try:
+            ref, _, ref_runs, _, _ = _bench_counted(dev, cpu,
+                                                "bench reduced cpu")
+    finally:
+        torch.set_num_threads(threads)
+    got, small, got_runs, _, _ = _bench_counted(dev, card,
+                                                "bench reduced cuda")
+    del cpu, card
+    _log_bench(got, "bench reduced cuda")
+    diff = _first_difference(_bench_facts(ref), _bench_facts(got))
+    if diff is not None:
+        raise AssertionError(f"bench reduced: the card's facts differ from "
+                             f"the CPU's at {diff}")
+    if len(ref_runs) != len(got_runs):
+        raise AssertionError(f"bench reduced: {len(got_runs)} session runs "
+                             f"on the card, {len(ref_runs)} on the CPU")
+    flips = compared = 0
+    for i, ((r, margins), (g, _)) in enumerate(zip(ref_runs, got_runs)):
+        if [x.rid for x in r] != [x.rid for x in g] or \
+                [len(x.tokens) for x in r] != [len(x.tokens) for x in g]:
+            raise AssertionError(f"bench reduced: run {i} served other "
+                                 "requests on the card")
+        if margins is not None:
+            compared += 1
+            flips += _near_tie_flips(r, margins, g, f"bench reduced run {i}")
+    log(f"bench reduced: card facts equal the CPU's; tokens of {compared} "
+        f"of {len(ref_runs)} session runs compared "
+        f"({'identical' if not flips else f'{flips} near-tie flips'})")
+    _bench_checks(got, cfg, "bench reduced cuda")
+    full = dataclasses.replace(get("llama3-8b"), n_layers=BENCH_LAYERS)
+    log(f"bench: llama3-8b at full width, depth cut: {BENCH_LAYERS} of 32 "
+        "layers")
+    torch.cuda.empty_cache()
+    eng = Engine(full, device=dev, seed=0)
+    raw = [t.clone() for t in _leaves(eng.params)]
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)   # the raw weights, twice
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.serve([Request(prompt=[1, 2, 3], max_new=2)], batch_slots=2)
+    torch.cuda.synchronize(dev)
+    step = torch.cuda.max_memory_allocated(dev) - base
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _inner_footprints(dev) as foot:
+        out, counts, _, _, shapes = _bench_counted(dev, eng,
+                                                   "bench llama3-8b",
+                                                   by_shape=True)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    left = torch.cuda.memory_allocated(dev) - base
+    room = max(max(c + step for c in foot["copies"]),
+               max(c + x for c, x in zip(foot["copies"], foot["scratch"])))
+    gib = 2 ** 30
+    log(f"bench llama3-8b: peak {foot['peak'] / gib:.2f} GiB over "
+        f"{base / gib:.2f} GiB of raw weights and their clone ("
+        f"{sum(t.numel() * t.element_size() for t in raw) / gib:.2f} GiB "
+        f"each); a serve's scratch on them {step / gib:.2f} GiB; the inner "
+        "engines' copies " + ", ".join(f"{c / gib:.2f}" for c in
+                                       foot["copies"])
+        + " GiB, their compressors' scratch up to "
+        f"{max(foot['scratch']) / gib:.2f} GiB; allowed above the raw "
+        f"weights {room / gib:.2f} + 0.25 GiB; {left / 2 ** 20:.1f} MiB "
+        "left allocated after the sections")
+    if foot["peak"] - base > room + gib // 4:
+        raise AssertionError(f"bench llama3-8b: peak {foot['peak'] / gib:.2f}"
+                             f" GiB holds more than one compressed copy at a "
+                             "time")
+    if left > gib // 4:
+        raise AssertionError(f"bench llama3-8b: {left / 2 ** 20:.1f} MiB "
+                             "still allocated after the sections: an inner "
+                             "engine or session outlived its section")
+    if not all(torch.equal(a, b) for a, b in zip(raw, _leaves(eng.params))):
+        raise AssertionError("bench llama3-8b: the engine's raw weights "
+                             "changed under its sections")
+    del eng, raw
+    _log_bench(out, "bench llama3-8b")
+    _bench_checks(out, full, "bench llama3-8b")
+    if out["capacity"]["chosen"] != ref["capacity"]["chosen"]:
+        raise AssertionError(f"bench llama3-8b: capacity chose "
+                             f"{out['capacity']['chosen']}, the CPU "
+                             f"{ref['capacity']['chosen']}")
+    for name in ("acsr_spmv_gather", "acsr_spmv_wide",
+                 "paged_attention_decode", "paged_attention_chunk",
+                 "int8_matmul", "lut_matmul"):
+        if not counts[name] or not small[name]:
+            raise AssertionError(f"bench: {name} was not launched")
+    json.dumps(out)
+    # K2 and K3 timed at (b)'s shapes: a context of 37 (or a full table,
+    # if narrower) in a table as wide as the sessions'
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    paged = {"paged_attention_decode": {
+        (ps, width, kv): _time_k2(dev, gen, flush, min(37, width), width,
+                                  f" bench ps={ps}", kv_dtype=kv, ps=ps)
+        for ps, width, kv in shapes["paged_attention_decode"]}}
+    paged["paged_attention_chunk"] = {}
+    for ps, width, c, kv in shapes["paged_attention_chunk"]:
+        if kv != "bf16":
+            raise AssertionError("bench: K3 ran over int8 pages, which its "
+                                 "timing does not cover")
+        paged["paged_attention_chunk"][(ps, width, c, kv)] = _time_k3(
+            dev, gen, flush, min(37, width), width, f" bench ps={ps}",
+            chunk=c, ps=ps)
+    del flush
+    return counts, shapes, paged
+
+
 def _by_shape(times, launches, key="rows"):
     """A kernel's numbers for the kernels line at each shape the main path
     gives it (an FC kernel's rows, per layer of seven projections; K7 /
@@ -4348,7 +4870,7 @@ def main(argv=None) -> int:
     _timed("mesh bands", mesh_band_phase, dev, flush)
     for mode, name in (("int8", "int8_matmul"), ("codebook4", "lut_matmul")):
         errs[name] = fc_errs[mode]
-        times[name] = {m: fc_times[(mode, m)] for m in (4, 32)}
+        times[name] = {m: fc_times[(mode, m)] for m in FC_ROWS}
     flash_errs, flash_rows = _timed("K7/K8", flash_phase, dev, flush)
     times.update(flash_rows)
     errs["flash_attention_fwd"] = max(flash_errs["o"], flash_errs["lse"])
@@ -4427,6 +4949,19 @@ def main(argv=None) -> int:
     del eng
     _timed("rwkv6 cross-check", rwkv6_cross_check, dev)
     launches["lut_product_matmul"] = sum(k6_launches.values())
+    # the Engine's benchmark surface: K1-K5 again, at full width
+    bench, bench_shapes, bench_paged = _timed("engine benchmarks",
+                                              bench_phase, dev)
+    for name, n in bench.items():
+        launches[name] += n
+    for name in ("acsr_spmv_gather", "acsr_spmv_wide", "int8_matmul",
+                 "lut_matmul"):
+        for rows, n in bench_shapes[name].items():
+            if rows not in times[name]:
+                raise AssertionError(f"engine benchmarks: {name} ran at "
+                                     f"{rows} columns or rows, which its "
+                                     "timing does not cover")
+            by_rows[name][rows] = by_rows[name].get(rows, 0) + n
     by_rows["lut_product_matmul"] = k6_launches
     kernels = []
     for name, source, replaces in KERNELS:
@@ -4444,6 +4979,13 @@ def main(argv=None) -> int:
                  "launches": model_launches.get((name, m), 0)
                  if ctx == 37 else 0, **t}
                 for (m, ctx), t in sorted(model_times[name].items())]
+            row["shapes"] += [   # the engine benchmarks' pages and chunks
+                {"model": "llama3-8b", "phase": "engine benchmarks",
+                 "ps": key[0], "table_keys": key[1], "kv": key[-1],
+                 **({"chunk": key[2]} if len(key) == 4 else {}),
+                 "ctx": min(37, key[1]),
+                 "launches": bench_shapes[name][key], **t}
+                for key, t in sorted(bench_paged[name].items())]
         elif name in FLASH:               # K7, K8: by model
             row.update(_by_shape(times[name], flash_launches[name],
                                  "model"))

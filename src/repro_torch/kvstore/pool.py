@@ -251,3 +251,18 @@ def copy_pages(src: PagedKV, dst: PagedKV, src_ids, dst_ids
         moved += block.numel() * block.element_size()
         d.index_copy_(ax, di, block)
     return dst, moved
+
+
+# ------------------------------------------------------------- accounting
+def kv_bytes_per_token(n_kv: int, d_head: int, page_size: int,
+                       kv_dtype: str = "int8") -> float:
+    """Steady-state pool bytes per cached token (k + v, scales amortised
+    over a page)."""
+    if kv_dtype == "int8":
+        return 2 * n_kv * d_head + 2 * n_kv * 4 / page_size
+    return 2 * n_kv * d_head * 2          # bf16 pages
+
+
+def dense_kv_bytes_per_token(n_kv: int, d_head: int) -> float:
+    """The dense bf16 cache holds this per *slot*, used or not."""
+    return 2 * n_kv * d_head * 2
